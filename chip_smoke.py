@@ -4,24 +4,31 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
-  1. build the hand-written CUDA kernel (csrc/commit.cu, nvcc, sm_90a);
-  2. hold the kernel against its plain PyTorch version (commit_ref) on the
-     card, bit-exact (tolerance 0: every output is an integer), in the
-     I16, I16+I4 and mixed variants, at 64x48 and at 1920x1088; time both;
+  1. build the hand-written CUDA kernels (csrc/commit.cu, nvcc, sm_90a)
+     and print what ptxas reports;
+  2. hold the frame kernel (one persistent launch per frame) against its
+     plain PyTorch version (commit_ref) on the card, bit-exact (tolerance
+     0: every output is an integer), in the I16, I16+I4 and mixed
+     variants, at 64x48, 48x32, 1920x1088 and a tall frame whose MB rows
+     outnumber the blocks the card holds at once (so blocks loop over
+     rows), and at 1920x1088 with 7 blocks; hold the first port's
+     per-diagonal kernel against commit_ref too; time both kernels in
+     turns (old, new, new, old) and commit_ref; split the per-diagonal
+     kernel's time into launch cost and work; time the frame kernel's MB
+     step and row hand-off on one-row and one-column frames; read its
+     per-block counters (wait, luma, chroma, polling) at 1080p;
   3. encode a 3-frame 64x48 all-intra clip on CUDA and on the CPU: the
      streams must be byte-identical, and tools/refdec.py must decode the
      CUDA stream to its reconstruction;
   4. the main path: 8 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernel's launch count reset
-     just before and read just after; frame 0 must match a CPU encode of
-     the same frame byte for byte;
-  5. print fps, the kernel's and the plain version's time per frame, a
-     per-stage breakdown, the card's name and power limit, and the result.
-
-The script imports no JAX. The port shares x264_tpu's JAX-free host
-modules (parameters, NAL / slice-header writers, VLC tables, rate
-control); phase 5 checks that `jax` never entered the process.
+     just before and read just after (one launch per encoded frame);
+     frame 0 must match a CPU encode of the same frame byte for byte;
+  5. print fps, the kernels' and the plain version's time per frame, a
+     per-stage breakdown, the kernel line, the card's name and power
+     limit, and the result; fail if `jax` or any module of the `x264_tpu`
+     package entered the process.
 """
 
 import json
@@ -119,6 +126,199 @@ def cuda_ms(torch, fn, runs):
     return start.elapsed_time(end) / runs
 
 
+PREFILL_CYCLES = 20_000_000     # ~10 ms of torch.cuda._sleep
+
+
+def launch_split(torch, C, args, kw):
+    """Split the per-diagonal kernel's time into launch cost and work:
+    D launches (D = the frame's diagonal count) of an empty kernel and of
+    one full diagonal (min(mbw, mbh) MBs, all-I16 and all-I4) through the
+    same ctypes path. "host_paced": CUDA events around the launches as the
+    host issues them; "device": the same after a torch.cuda._sleep that
+    lets the host queue every launch first, so the events see the card's
+    time alone. Returns microseconds per launch."""
+    import ctypes
+    lib = C._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    mbw, mbh = args[7], args[8]
+    n = C.n_diags(mbw, mbh)
+    d = max(mbw, mbh) - 1
+
+    def check(rc):
+        if rc != 0:
+            fail(f"launch failed: CUDA error {rc}")
+
+    def per_launch_us(launch, prefill):
+        torch.cuda.synchronize()
+        if prefill:
+            torch.cuda._sleep(PREFILL_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) * 1e3 / n
+
+    out = {"launches": n, "diagonal": d, "mbs_on_diagonal": min(mbw, mbh)}
+    runs = [("empty", lambda: check(lib.x264t_empty_launch(stream)))]
+    keep = []
+    for label, all_i4 in (("diag_i16", False), ("diag_i4", True)):
+        mask = torch.full_like(kw["i4_mask"], all_i4)
+        struct, *tensors = C._kernel_args(*args, **dict(kw, i4_mask=mask))
+        keep.append((struct, tensors, mask))
+        runs.append((label, lambda s=struct: check(
+            lib.x264t_commit_diag(ctypes.byref(s), d, stream))))
+    for label, launch in runs:
+        per_launch_us(launch, False)                 # warm-up
+        for mode, prefill in (("host_paced", False), ("device", True)):
+            out[f"{label}_{mode}_us"] = [per_launch_us(launch, prefill)
+                                         for _ in range(2)]
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+# The data sheet gives no integer rate outside the tensor cores; its
+# float32 rate there (67e12 /s) is the most an int32 ALU op could reach.
+INT_OPS_PER_S = 67e12
+# Integer ops per reconstructed pixel: forward and inverse transform
+# (2 passes of 8 adds + 2 shifts per 4 values: 5 each), quant (abs, mul,
+# add, shift, sign: 5), dequant (2), prediction, residual, rounding and
+# clip (5), the DC transforms and mode sums spread over the MB (2).
+OPS_PER_PIXEL = 24
+OPS_PER_I4_PIXEL = 6         # I_4x4 edge vectors and their 3-/2-tap filters
+
+
+def commit_bound(args, kw, got):
+    """Least time the card could take for one commit on these inputs: the
+    larger of the bytes it must move (inputs read once, outputs written
+    once) over the memory rate and the integer ops these MBs need over
+    the ALU rate. Returns (bound_ms, bound_by, bytes, ops)."""
+    import torch
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    tensors += [t for v in kw.values()
+                for t in (v if isinstance(v, (list, tuple)) else [v])]
+    tensors += list(got[0].values()) + list(got[1])
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += 208 * 4 + (args[8] + 1) * 4          # quant tables, progress
+    intra = kw.get("is_intra")
+    n = args[7] * args[8]
+    n_intra = n if intra is None else int(intra.sum())
+    i4 = kw.get("i4_mask")
+    n_i4 = 0 if i4 is None else int((i4 if intra is None else i4 & intra)
+                                    .sum())
+    ops = OPS_PER_PIXEL * 384 * n_intra + OPS_PER_I4_PIXEL * 256 * n_i4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def refdec_decode(stream, w, h):
+    """Decode an Annex-B stream with tools/refdec.py -> [(y, u, v)]. The
+    decoder reads x264_tpu's spec tables, so it runs in a process of its
+    own and this one imports nothing of x264_tpu."""
+    import numpy as np
+    work = os.path.join(ROOT, "x264_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    src, raw = os.path.join(work, "s.264"), os.path.join(work, "s.yuv")
+    with open(src, "wb") as f:
+        f.write(stream)
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                     "refdec.py"), src, raw],
+                       capture_output=True, text=True, cwd=ROOT, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=ROOT))
+    if r.returncode != 0:
+        fail("refdec failed: " + r.stderr[-2000:])
+    data = np.fromfile(raw, np.uint8)
+    n = w * h * 3 // 2
+    frames = []
+    for k in range(len(data) // n):
+        fr = data[k * n:(k + 1) * n]
+        frames.append((fr[:w * h].reshape(h, w),
+                       fr[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
+                       fr[w * h * 5 // 4:].reshape(h // 2, w // 2)))
+    return frames
+
+
+def check_clean_imports():
+    bad = sorted(m for m in sys.modules if m == "jax"
+                 or m.startswith(("jax.", "jaxlib")) or m == "x264_tpu"
+                 or m.startswith("x264_tpu."))
+    if bad:
+        fail(f"modules of JAX or of the x264_tpu package were imported: "
+             f"{bad[:10]}")
+
+
+def kernel_stats(torch, C, args, kw, grid=None):
+    """One launch with the kernel's cycle counters on: per MB, the mean
+    time (us, at the SM clock the run itself shows) that a block waited
+    at the start of an MB, and that its luma (I16, I_4x4) and chroma
+    took; the waiter warp's polling; and the blocks' mean run time."""
+    grid = grid or min(args[8], C.grid_capacity(args[0].device))
+    stats = torch.zeros((grid, len(C.STATS_FIELDS)), dtype=torch.int64,
+                        device=args[0].device)
+    prog = C.commit_launch(*args, grid=grid, stats=stats, **kw)[2]
+    C.check_progress(prog, args[7])
+    tot = dict(zip(C.STATS_FIELDS, stats.sum(0).tolist()))
+    ghz = tot["run_cycles"] / tot["run_ns"]
+    mbs, i4 = tot["mbs"], tot["i4_mbs"]
+
+    def us(cycles, n):
+        return cycles / max(n, 1) / ghz / 1e3
+
+    return {"sm_ghz": ghz, "block_run_us": tot["run_ns"] / grid / 1e3,
+            "wait_us_per_mb": us(tot["wait_cycles"], mbs),
+            "poll_us_per_mb": us(tot["poll_cycles"], mbs),
+            "i16_luma_us": us(tot["i16_luma_cycles"], mbs - i4),
+            "i4_luma_us": us(tot["i4_luma_cycles"], i4),
+            "chroma_us": us(tot["chroma_cycles"], mbs)}
+
+
+def latency_model(torch, C, dev, rng):
+    """The frame kernel's time per MB on a frame one MB row tall (120 MBs
+    in one block: an MB step t) and one MB column wide (68 rows, each
+    waiting on the row above: t plus the hand-off h), all-I16 and
+    all-I_4x4, random content and modes; each held against commit_ref
+    first. CUDA events over 20 launches."""
+    import numpy as np
+    from x264_tpu_torch.ops.tables import chroma_qp
+    out = {}
+    for label, mbw, mbh in (("row", 120, 1), ("column", 1, 68)):
+        H, W = 16 * mbh, 16 * mbw
+
+        def rand(hi, shape, dtype=np.int32):
+            return torch.from_numpy(rng.integers(0, hi, shape)
+                                    .astype(dtype)).to(dev)
+
+        planes = [rand(256, s, np.uint8)
+                  for s in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+        qp = torch.full((mbh, mbw), 23, dtype=torch.int32, device=dev)
+        qpc = torch.full_like(qp, int(chroma_qp(23)))
+        args = (*planes, rand(4, (mbh, mbw)), rand(4, (mbh, mbw)), qp, qpc,
+                mbw, mbh)
+        modes = rand(9, (mbh, mbw, 16))
+        for kind in ("i16", "i4"):
+            kw = dict(i4_mask=torch.full((mbh, mbw), kind == "i4",
+                                         dtype=torch.bool, device=dev),
+                      i4_modes=modes)
+            err = max_abs_err(C.commit_ref(*args, **kw),
+                              C.commit_cuda(*args, **kw))
+            if err != 0:
+                fail(f"frame kernel disagrees with commit_ref ({label} "
+                     f"{kind})")
+            progs = []
+            ms = cuda_ms(torch, lambda: progs.append(
+                C.commit_launch(*args, **kw)[2]), 20)
+            for prog in progs:
+                C.check_progress(prog, mbw)
+            out[f"{label}_{kind}_us_per_mb"] = ms * 1e3 / (mbw * mbh)
+    for kind in ("i16", "i4"):
+        out[f"handoff_{kind}_us"] = (out[f"column_{kind}_us_per_mb"]
+                                     - out[f"row_{kind}_us_per_mb"])
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -126,8 +326,6 @@ def main():
         fail("torch.cuda.is_available() is false: this run needs a CUDA "
              "card")
     sys.path.insert(0, ROOT)
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import refdec
     from bench import synth_clip
     from x264_tpu_torch.encoder.encoder import TYPE_IDR, Encoder, Picture
     from x264_tpu_torch.ops import commit as C
@@ -141,58 +339,104 @@ def main():
     t0 = time.time()
     lib = C.build_library()
     C._library()
+    cap = C.grid_capacity(dev)
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
-        f"{os.path.relpath(lib, ROOT)}")
+        f"{os.path.relpath(lib, ROOT)}; frame kernel: {cap} co-resident "
+        f"blocks")
+    build_log = os.path.join(os.path.dirname(lib), "build.log")
+    if os.path.exists(build_log):
+        with open(build_log) as f:
+            for line in f:
+                if "registers" in line or "Compiling entry" in line:
+                    log("phase 1 ptxas: " + line.strip())
 
-    # ---- phase 2: kernel vs plain version on the card ----
+    # ---- phase 2: kernels vs plain version on the card ----
     clip = synth_clip(N_FRAMES)
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
-    big = enc_big._pad_to_mb(clip[0])
     rng = np.random.default_rng(5)
-    small_np = [rng.integers(0, 256, s).astype(np.uint8)
-                for s in ((48, 64), (24, 32), (24, 32))]
-    enc_small = Encoder(intra_params(64, 48), device=dev)
-    small = enc_small._pad_to_mb(small_np)
+
+    def random_planes(w, h):
+        return [rng.integers(0, 256, s).astype(np.uint8)
+                for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+
+    tall_h = 16 * (cap + 5)
+    sizes = [("64x48", 64, 48, random_planes(64, 48)),
+             ("48x32", 48, 32, random_planes(48, 32)),
+             ("1920x1088", 1920, 1080, clip[0]),
+             (f"256x{tall_h}", 256, tall_h,
+              synth_clip(1, w=256, h=tall_h)[0])]
     worst = 0
     timing_args = None
-    for label, enc, planes in (("64x48", enc_small, small),
-                               ("1920x1088", enc_big, big)):
+    for label, w, h, frame in sizes:
+        enc = enc_big if w == 1920 else Encoder(intra_params(w, h),
+                                                device=dev)
+        planes = enc._pad_to_mb(frame)
         for variant in ("i16", "i16+i4", "mixed"):
             args, kw = commit_inputs(torch, enc, planes, qp_i, seed=7,
                                      mixed=variant == "mixed",
                                      with_i4=variant != "i16")
             ref = C.commit_ref(*args, **kw)
-            got = C.commit(*args, **kw)
+            runs = [("frame kernel", C.commit_cuda(*args, **kw))]
+            if label == "1920x1088":
+                runs.append(("frame kernel, 7 blocks",
+                             C.commit_cuda(*args, grid=7, **kw)))
+                if variant == "i16+i4":
+                    runs.append(("per-diagonal kernel",
+                                 C.commit_cuda_diag(*args, **kw)))
             torch.cuda.synchronize()
-            err = max_abs_err(ref, got)
-            worst = max(worst, err)
             n_i4 = int(kw["i4_mask"].sum()) if "i4_mask" in kw else 0
-            log(f"phase 2 kernel vs commit_ref {label} {variant}: "
-                f"max_abs_err {err} (tolerance 0), I4 MBs {n_i4}")
-            if err != 0:
-                fail(f"kernel disagrees with commit_ref ({label} {variant})")
+            for kname, got in runs:
+                err = max_abs_err(ref, got)
+                worst = max(worst, err)
+                log(f"phase 2 {kname} vs commit_ref {label} {variant}: "
+                    f"max_abs_err {err} (tolerance 0), MB rows "
+                    f"{args[8]}, I4 MBs {n_i4}")
+                if err != 0:
+                    fail(f"{kname} disagrees with commit_ref ({label} "
+                         f"{variant})")
             if label == "1920x1088" and variant == "i16+i4":
-                timing_args = (args, kw)
-    args, kw = timing_args
+                timing_args = (args, kw, ref)
+    args, kw, ref = timing_args
+    bound_ms, bound_by, nbytes, ops = commit_bound(args, kw, ref)
 
     def run_plain():
         C.commit_ref(*args, **kw)
 
-    def run_kernel():
-        C.commit(*args, **kw)
+    def run_old():
+        C.commit_cuda_diag(*args, **kw)
 
-    cuda_ms(torch, run_kernel, 3)                  # warm-up
-    plain_ms = [cuda_ms(torch, run_plain, 1)]
-    kernel_ms = [cuda_ms(torch, run_kernel, 20), cuda_ms(torch, run_kernel,
-                                                         20)]
-    plain_ms.append(cuda_ms(torch, run_plain, 1))
-    k_ms = sum(kernel_ms) / len(kernel_ms)
+    progs = []
+
+    def run_new():
+        progs.append(C.commit_launch(*args, **kw)[2])
+
+    for fn in (run_old, run_new):
+        cuda_ms(torch, fn, 3)                      # warm-up
+    old_ms = [cuda_ms(torch, run_old, 20)]
+    new_ms = [cuda_ms(torch, run_new, 20), cuda_ms(torch, run_new, 20)]
+    old_ms.append(cuda_ms(torch, run_old, 20))
+    for prog in progs:
+        C.check_progress(prog, args[7])
+    plain_ms = [cuda_ms(torch, run_plain, 1) for _ in range(2)]
+    k_ms = sum(new_ms) / len(new_ms)
+    e_ms = sum(old_ms) / len(old_ms)
     p_ms = sum(plain_ms) / len(plain_ms)
-    log(f"phase 2 commit per 1080p frame (I16+I4, CUDA events; plain, "
-        f"kernel, kernel, plain): kernel {kernel_ms[0]:.3f} / "
-        f"{kernel_ms[1]:.3f} ms, commit_ref {plain_ms[0]:.1f} / "
-        f"{plain_ms[1]:.1f} ms")
+    log(f"phase 2 commit per 1080p frame (I16+I4, CUDA events, 20 runs "
+        f"each; old, new, new, old): per-diagonal kernel {old_ms[0]:.4f} / "
+        f"{old_ms[1]:.4f} ms, frame kernel {new_ms[0]:.4f} / "
+        f"{new_ms[1]:.4f} ms; commit_ref {plain_ms[0]:.1f} / "
+        f"{plain_ms[1]:.1f} ms; bound {bound_ms * 1e3:.3f} us by "
+        f"{bound_by} ({nbytes} bytes, {ops} integer ops)")
+    split = launch_split(torch, C, args, kw)
+    log("phase 2 per-diagonal kernel, launch vs work (us per launch): "
+        + json.dumps(split))
+    log("phase 2 frame kernel, MB step and row hand-off (us): "
+        + json.dumps(latency_model(torch, C, dev, rng)))
+    for grid in (None, 7):
+        log(f"phase 2 frame kernel, where a 1080p I16+I4 frame's time goes "
+            f"({grid or 'all'} blocks): "
+            + json.dumps(kernel_stats(torch, C, args, kw, grid)))
 
     # ---- phase 3: 64x48 stream, CUDA vs CPU, refdec ----
     yy, xx = np.mgrid[0:48, 0:64]
@@ -211,7 +455,7 @@ def main():
     s_cpu, _ = encode_stream(Encoder(p3, device="cpu"), frames3, Picture)
     if s_gpu != s_cpu:
         fail("64x48 CUDA and CPU streams differ")
-    decoded = refdec.Decoder().decode(s_gpu)
+    decoded = refdec_decode(s_gpu, 64, 48)
     if len(decoded) != 3 or not all(
             np.array_equal(d[c], o.recon[c])
             for d, o in zip(decoded, o_gpu) for c in range(3)):
@@ -230,15 +474,14 @@ def main():
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = C.commit.launches
-    D = enc.mb_w + enc.mb_h - 1
     retries = sum((o.qp - qp_i) // 4 for o in outs)
     log(f"phase 4 main path: {len(outs)} frames, {len(stream)} bytes, "
         f"QPs {[o.qp for o in outs]}, commit launches {launches} "
-        f"(= {D} diagonals x {N_FRAMES} frames + {retries} re-encodes)")
+        f"(= {N_FRAMES} frames + {retries} re-encodes)")
     if len(outs) != N_FRAMES:
         fail(f"{len(outs)} frames out of {N_FRAMES}")
-    if launches == 0 or launches != D * (N_FRAMES + retries):
-        fail(f"commit launches {launches} != {D} x {N_FRAMES + retries}")
+    if launches != N_FRAMES + retries:
+        fail(f"commit launches {launches} != {N_FRAMES} + {retries}")
     for o in outs:
         shapes = [tuple(np.asarray(r).shape) for r in o.recon]
         if shapes != [(1080, 1920), (540, 960), (540, 960)]:
@@ -258,23 +501,24 @@ def main():
         f"({len(s_gpu1)} bytes)")
 
     # ---- phase 5: report ----
-    stages = stage_breakdown(torch, enc_big, big, qp_i)
+    stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
+                             qp_i)
     fps = N_FRAMES / wall
     log(f"phase 5 fps (8 x 1080p all-intra, Encoder.encode, host clock, "
         f"first frame included): {fps:.4f} ({wall:.3f} s)")
     log("phase 5 stages ms per 1080p frame (host clock, synchronised): "
         + json.dumps(stages))
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     log(json.dumps({"kernels": [{
-        "name": "commit_diag_kernel", "route": "cuda",
+        "name": "commit_frame_kernel", "route": "cuda",
         "source": "x264_tpu_torch/csrc/commit.cu",
         "replaces": "x264_tpu/ops/pallas/commit.py:672",
         "launches": launches, "max_abs_err": worst,
-        "ms": k_ms, "plain_ms": p_ms}]}))
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "earlier_ms": e_ms}]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {

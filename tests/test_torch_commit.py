@@ -3,9 +3,10 @@ their JAX twins.
 
 commit_ref (x264_tpu_torch/ops/commit.py) is held against
 intra._commit_scan and against the Pallas kernel commit_i16_pallas run in
-interpret mode, in the 5 cases of tests/test_pallas_commit.py. Exact
+interpret mode, in the 5 cases of tests/test_pallas_commit.py, in the
+default diagonal order and in the frame kernel's raster MB order. Exact
 equality throughout (integer outputs, tolerance 0). The CUDA kernel is
-held against commit_ref by the `cuda`-marked test, which runs only where
+held against commit_ref by the `cuda`-marked tests, which run only where
 a card is present (and in chip_smoke.py)."""
 
 import numpy as np
@@ -138,6 +139,52 @@ def test_commit_ref_matches_pallas_interpret(commit_runs, case):
     _assert_commit_equal(run["pallas"], run["port"])
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_commit_ref_raster_order_matches_diagonals(commit_runs, case):
+    """The frame kernel commits MB rows left to right, each row behind the
+    one above; the plain per-MB steps driven one MB at a time in raster
+    order give the diagonal order's bits."""
+    run = commit_runs[case]
+    args, kw = _torch_args(run["inp"])
+    mbw, mbh = run["inp"]["mbw"], run["inp"]["mbh"]
+    raster = [(torch.tensor([x]), torch.tensor([y]))
+              for y in range(mbh) for x in range(mbw)]
+    _assert_commit_equal(run["scan"],
+                         tcommit.commit_ref(*args, order=raster, **kw))
+
+
+@pytest.mark.parametrize("case", ["i4", "i4_mixed"])
+def test_i4_wavefront_order_matches_zscan(commit_runs, case):
+    """I_4x4 in the frame kernel's block order (a wavefront over
+    bx + 2 by) gives the z-scan's levels and reconstruction, for every MB
+    of the frame with its committed neighbours as edges."""
+    assert sorted(tcommit.I4_WAVEFRONT) == list(range(16))
+    inp = commit_runs[case]["inp"]
+    _, recon = commit_runs[case]["port"]
+    mbw, mbh = inp["mbw"], inp["mbh"]
+    rec = torch.zeros((16 * mbh + 1, 16 * mbw + 1), dtype=torch.int32)
+    rec[1:, 1:] = recon[0].to(torch.int32)
+    ys, xs = [t.reshape(-1) for t in torch.meshgrid(
+        torch.arange(mbh), torch.arange(mbw), indexing="ij")]
+    top, left, tl = tcommit._edges(rec, xs, ys, 16)
+    src = tcommit._tiles(_t(inp["y"]), xs, ys, 16)
+    modes = _t(inp["i4_modes"])[ys, xs]
+    qp = _t(inp["qp_mb"])[ys, xs]
+    zscan = tcommit._i4_commit_mb(src, left, top, tl, xs > 0, ys > 0, modes,
+                                  qp)
+    wave = tcommit._i4_commit_mb(src, left, top, tl, xs > 0, ys > 0, modes,
+                                 qp, order=tcommit.I4_WAVEFRONT)
+    for z, w in zip(zscan, wave):
+        assert torch.equal(z, w)
+    # and on the MBs that committed as I_4x4, what commit_ref kept
+    lane = _t(inp["i4_mask"])[ys, xs]
+    if "is_intra" in inp:
+        lane &= _t(inp["is_intra"])[ys, xs]
+    assert torch.equal(wave[1][lane],
+                       tcommit._tiles(recon[0], xs, ys, 16)[lane].to(
+                           torch.int32))
+
+
 def test_commit_on_cpu_tensors_takes_plain_version(commit_runs):
     run = commit_runs["i4_mixed"]
     args, kw = _torch_args(run["inp"])
@@ -153,6 +200,44 @@ def test_commit_kernel_never_falls_back_on_cpu_tensors(commit_runs):
     args, kw = _torch_args(commit_runs["i16_seed0"]["inp"])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tcommit.commit_cuda(*args, **kw)
+
+
+def test_i4_wavefront_puts_every_block_after_its_neighbours():
+    """Each block of I4_WAVEFRONT comes after its left, top and top-left
+    blocks, and after its top-right block where that one is read ('real'
+    kind), so the frame kernel's order reads only finished pixels."""
+    pos = {r: n for n, r in enumerate(tcommit.I4_WAVEFRONT)}
+    for r in range(16):
+        bx, by = r % 4, r // 4
+        deps = [(bx - 1, by), (bx, by - 1), (bx - 1, by - 1)]
+        if tcommit._I4_KIND[r] == 2:
+            deps.append((bx + 1, by - 1))
+        for dx, dy in deps:
+            if 0 <= dx < 4 and 0 <= dy < 4:
+                assert pos[dy * 4 + dx] < pos[r], (r, dx, dy)
+
+
+@pytest.mark.parametrize("fn", ["commit_launch", "commit_cuda_diag"])
+def test_other_kernel_entries_refuse_cpu_tensors(commit_runs, fn):
+    args, kw = _torch_args(commit_runs["i4"]["inp"])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(tcommit, fn)(*args, **kw)
+
+
+@pytest.mark.parametrize("case", ["done", "timed_out", "unfinished"])
+def test_check_progress(case):
+    """The wrapper raises unless every row reached mbw and the error word
+    (set when a wavefront wait runs past its bound) stayed 0."""
+    prog = torch.tensor([5, 5, 5, 0], dtype=torch.int32)
+    if case == "timed_out":
+        prog[-1] = 1
+    elif case == "unfinished":
+        prog[1] = 3
+    if case == "done":
+        tcommit.check_progress(prog, 5)
+    else:
+        with pytest.raises(RuntimeError, match="bound|unfinished"):
+            tcommit.check_progress(prog, 5)
 
 
 @pytest.fixture
@@ -175,6 +260,28 @@ def test_commit_kernel_matches_ref(cuda_device, commit_runs, case):
     _assert_commit_equal(commit_runs[case]["port"],
                          ({k: v.cpu() for k, v in coeffs.items()},
                           [r.cpu() for r in recon]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, 2])
+def test_commit_kernel_small_grid_and_stats(cuda_device, commit_runs, grid):
+    """Fewer blocks than MB rows (each block walks several rows) give the
+    same bits; the counters come back for every block."""
+    args, kw = _torch_args(commit_runs["i4_mixed"]["inp"])
+    dev_args = [a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+                for a in args]
+    dev_kw = {k: ([p.to(cuda_device) for p in v] if k == "inter_planes"
+                  else v.to(cuda_device)) for k, v in kw.items()}
+    stats = torch.zeros((grid, len(tcommit.STATS_FIELDS)), dtype=torch.int64,
+                        device=cuda_device)
+    coeffs, recon, prog = tcommit.commit_launch(*dev_args, grid=grid,
+                                                stats=stats, **dev_kw)
+    tcommit.check_progress(prog, args[7])
+    _assert_commit_equal(commit_runs["i4_mixed"]["port"],
+                         ({k: v.cpu() for k, v in coeffs.items()},
+                          [r.cpu() for r in recon]))
+    fields = dict(zip(tcommit.STATS_FIELDS, stats.sum(0).tolist()))
+    assert fields["mbs"] == args[7] * args[8]
 
 
 # ---------------------------------------------------------------- decision

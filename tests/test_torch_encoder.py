@@ -181,12 +181,18 @@ def test_inter_frames_raise_not_implemented():
 
 
 def test_import_leaves_jax_out():
+    """Every port module and chip_smoke import neither jax nor any module
+    of the x264_tpu package (the port keeps its own host modules)."""
     code = ("import pkgutil, importlib, sys\n"
             "import x264_tpu_torch\n"
             "for m in pkgutil.walk_packages(x264_tpu_torch.__path__,\n"
             "                                'x264_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "import chip_smoke\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "bad = [m for m in sys.modules if m == 'x264_tpu'\n"
+            "       or m.startswith('x264_tpu.')]\n"
+            "assert not bad, bad\n"
             "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -1,7 +1,8 @@
 """State carried across the two packages.
 
-An encoder has no weights. What it carries is its parameters (shared: both
-packages use x264_tpu.params) and its device state, the DPB: a list of
+An encoder has no weights. What it carries is its parameters (each
+package has its own `params.Params`, field for field the same) and its
+device state, the DPB: a list of
 entry dicts {"y_pad", "hpel", "cuv_pad", "frame_num", "poc", "tag", ...}.
 These helpers move one entry between numpy (and so JAX) and torch, so both
 encoders can start from the same reference state.

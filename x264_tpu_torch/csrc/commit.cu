@@ -5,33 +5,52 @@
 // x264_tpu/encoder/intra.py::_commit_scan and of the plain PyTorch
 // version x264_tpu_torch/ops/commit.py::commit_ref.
 //
-// What it computes: the exact intra reconstruction of a frame in MB
-// anti-diagonal order (diagonal d holds MBs with x + y = d, whose left,
-// top and top-left neighbours lie on diagonals d-1 and d-2). Per MB:
-// I16x16 prediction from the reconstructed neighbours, sixteen 4x4 forward
-// integer DCTs, the 4x4 luma-DC Hadamard, deadzone quant, spec 8.5.10-12
-// dequant, inverse transform and clip; 4:2:0 chroma with the 2x2 DC
-// Hadamard; optional I_4x4 lanes (16 sequential z-scan block steps inside
-// the MB, levels in the "ac" slot with dc = 0); optional mixed lanes
-// (intra-in-P) that copy the inter reconstruction and write zero levels.
+// What it computes: the exact intra reconstruction of a frame, MB by MB
+// in an order where each MB's left, top and top-left neighbours come
+// first. Per MB: I16x16 prediction from the reconstructed neighbours,
+// sixteen 4x4 forward integer DCTs, the 4x4 luma-DC Hadamard, deadzone
+// quant, spec 8.5.10-12 dequant, inverse transform and clip; 4:2:0 chroma
+// with the 2x2 DC Hadamard; optional I_4x4 lanes (each 4x4 block predicted
+// from its reconstructed neighbours, levels in the "ac" slot with dc = 0);
+// optional mixed lanes (intra-in-P) that copy the inter reconstruction and
+// write zero levels.
 //
-// What bounds it on this card: neither bytes nor operations (a 1080p frame
-// is about 3 MB and a few hundred MFLOP of integer work) but latency: the
-// D = mbw + mbh - 1 diagonals form a serial chain (187 at 1080p), each
-// holding at most mbh = 68 MBs, so the card is mostly idle between
-// dependent steps, and inside an MB the I_4x4 path is a chain of 16 block
-// steps.
+// What bounds it on this card: the dependency chain, not bytes or
+// operations. A 1080p frame moves about 20 MB (sources, reconstruction,
+// levels, per-MB modes: 6 us at 3.35 TB/s) and does about 8 x 10^7
+// integer operations, but MB (x, y) needs its left, top and top-left
+// neighbours reconstructed first, so at least mbw + mbh - 1 = 187 MB
+// steps run one after another, and inside an I_4x4 MB the sixteen 4x4
+// blocks form a chain of their own.
 //
-// What this design does about it (right and simple first): one launch
-// per diagonal on the caller's stream, one 256-thread block per MB (one
-// thread per luma pixel or coefficient), all neighbour reads straight from
-// the raster recon planes that earlier launches finished (stream order is
-// the dependency barrier), exact integer butterflies (no matmul form), and
-// the I_4x4 chain on a shared-memory [17][21] edge buffer. A persistent
-// row-synchronised kernel, tiling and CUDA graphs are later work.
+// commit_frame_kernel, the main path: one persistent cooperative launch
+// per frame. Each block walks whole MB rows left to right and waits,
+// before MB x, on a progress word that the row above publishes after each
+// MB (release store / acquire load; the top edge is then read past L1),
+// so one slow I_4x4 MB delays only what depends on it. A waiter warp does
+// the polling and loads the top edge, and a releaser warp publishes,
+// while the compute warps work. The left neighbour is the block's own
+// previous MB and stays in shared memory; the next MB's source tile,
+// inter tile, modes and QPs are copied in with cp.async while the current
+// MB computes. Inside the MB, luma (warps 0-7) and chroma (warps 8-11)
+// run side by side on named barriers; the 4x4 transforms, Hadamards and
+// prediction sums are warp shuffles; I_4x4 runs as a wavefront over
+// bx + 2 by, 10 steps of two blocks in one warp, with __syncwarp between
+// steps. A wait that runs past its bound sets an error word and the
+// blocks leave, so nothing hangs.
+//
+// Tensor cores do not fit: the 4x4 transforms are exact integer
+// butterflies of 16 values. The f32 matmul form of the Pallas kernel
+// (x264_tpu/ops/pallas/commit.py:76-86) exists only because Mosaic has
+// no int32 matmul.
+//
+// commit_diag_kernel, kept from the first port only so that a run on the
+// card can time the two designs side by side: one launch per
+// anti-diagonal, one 256-thread block per MB, neighbours read from the
+// planes that earlier launches finished.
 //
 // Unavailable neighbour pixels read as 0, matching the zero-initialised
-// planes of the JAX scan. The kernel allocates nothing.
+// planes of the JAX scan. The kernels allocate nothing.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -93,6 +112,10 @@ __device__ __forceinline__ int dequant(int lv, int mf16, int shift) {
   return (l32 + (1 << (-shift - 1))) >> (-shift);
 }
 
+__device__ __forceinline__ int sel4(int k, int v0, int v1, int v2, int v3) {
+  return k == 0 ? v0 : k == 1 ? v1 : k == 2 ? v2 : v3;
+}
+
 // one stage of the spec inverse core: output k of inputs a0..a3
 __device__ __forceinline__ int inv1d(int a0, int a1, int a2, int a3, int k) {
   int e0 = a0 + a2, e1 = a0 - a2;
@@ -103,6 +126,14 @@ __device__ __forceinline__ int inv1d(int a0, int a1, int a2, int a3, int k) {
     case 2: return e1 - e2;
     default: return e0 - e3;
   }
+}
+
+// the same, without branches (the frame kernel's lanes differ in k)
+__device__ __forceinline__ int inv1d_sel(int a0, int a1, int a2, int a3,
+                                         int k) {
+  const int e0 = a0 + a2, e1 = a0 - a2;
+  const int e2 = (a1 >> 1) - a3, e3 = a1 + (a3 >> 1);
+  return sel4(k, e0 + e3, e1 + e2, e1 - e2, e0 - e3);
 }
 
 // forward core transform of the 4x4 block at (r0, c0) of a row-major
@@ -517,6 +548,672 @@ commit_diag_kernel(CommitArgs a, int d, int y0) {
   }
 }
 
+// ====================================================================
+// commit_frame_kernel: one persistent, row-synchronised launch per frame
+// ====================================================================
+
+constexpr int kLumaThreads = 256;   // warps 0-7: one thread per luma pixel
+constexpr int kChromaThreads = 128; // warps 8-11: U then V, one per pixel
+constexpr int kComputeThreads = kLumaThreads + kChromaThreads;
+constexpr int kWaiterWarp = 12;     // polls the row above, loads top edges
+constexpr int kReleaserWarp = 13;   // publishes this row's progress
+constexpr int kThreads = kComputeThreads + 64;
+// named barriers: kBarStart (compute + waiter sync, releaser arrives)
+// opens an MB; kBarDone (compute arrive, releaser syncs) closes it
+constexpr int kBarStart = 1, kBarDone = 2, kBarLuma = 3, kBarChroma = 4;
+constexpr int kSpinLimit = 1 << 22;           // polls before a wait fails
+constexpr unsigned kFull = 0xffffffffu;
+
+// kKind, two bits per raster block
+constexpr unsigned kKindBits = 0x222a2215u;
+
+struct FrameSmem {
+  // per-MB inputs, double-buffered: MB n + 1 lands while MB n computes
+  alignas(16) uint8_t src_y[2][256];
+  alignas(16) uint8_t src_c[2][2][64];
+  alignas(16) uint8_t int_y[2][256];   // inter reconstruction (mixed)
+  alignas(16) uint8_t int_c[2][2][64];
+  alignas(16) int i4m[2][16];
+  // i16_mode, chroma_mode, qp, qpc, then the 4-byte words of i4_mask and
+  // is_intra that hold this MB's byte: the compute warps read no global
+  // memory
+  int prm[2][6];
+  // right column of the previous MB (this block's own), by MB parity
+  int left[2][16];
+  int cleft[2][2][8];
+  int tab[208];                        // quant tables, as CommitArgs::tab
+  int ext[17 * 21];                    // I_4x4 edge buffer, as PR 1's
+  int dcw[16], dcv[16];                // luma DC coefficients / values
+  int cdcw[2][4];                      // chroma DC coefficients
+  // the MB's top edges and top-left pixels (luma, U, V), 0 where
+  // unavailable, and whether to abort; written by the waiter warp
+  int top[2][16], ctop[2][2][8], tl[2][3], abort[2];
+  int quit;                            // compute warps to the releaser
+};
+
+__device__ __forceinline__ void bar_named(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// a reconstructed pixel of another block: read at L2, past this SM's L1,
+// which may hold a line from before that block wrote it
+__device__ __forceinline__ int ldcg_u8(const uint8_t* p) {
+  unsigned v;
+  asm volatile("ld.global.cg.u8 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return (int)v;
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.s32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Lane k = 4 i + j of a 16-lane group holds x[i][j] of one 4x4 block.
+// Forward core transform W = CF X CF^T, coefficient (i, j) per lane.
+__device__ __forceinline__ int fdct_lanes(int x, int i, int j) {
+  const int a0 = __shfl_sync(kFull, x, 4 * i + 0, 16);
+  const int a1 = __shfl_sync(kFull, x, 4 * i + 1, 16);
+  const int a2 = __shfl_sync(kFull, x, 4 * i + 2, 16);
+  const int a3 = __shfl_sync(kFull, x, 4 * i + 3, 16);
+  // row pass: T[i][j] = sum_q X[i][q] CF[j][q]
+  int s03 = a0 + a3, d03 = a0 - a3, s12 = a1 + a2, d12 = a1 - a2;
+  const int tr = sel4(j, s03 + s12, 2 * d03 + d12, s03 - s12, d03 - 2 * d12);
+  const int b0 = __shfl_sync(kFull, tr, 0 + j, 16);
+  const int b1 = __shfl_sync(kFull, tr, 4 + j, 16);
+  const int b2 = __shfl_sync(kFull, tr, 8 + j, 16);
+  const int b3 = __shfl_sync(kFull, tr, 12 + j, 16);
+  // column pass: W[i][j] = sum_p CF[i][p] T[p][j]
+  s03 = b0 + b3, d03 = b0 - b3, s12 = b1 + b2, d12 = b1 - b2;
+  return sel4(i, s03 + s12, 2 * d03 + d12, s03 - s12, d03 - 2 * d12);
+}
+
+// The 4x4 Hadamard H V H^T in the same layout (H = kH4).
+__device__ __forceinline__ int had4_lanes(int x, int i, int j) {
+  const int a0 = __shfl_sync(kFull, x, 4 * i + 0, 16);
+  const int a1 = __shfl_sync(kFull, x, 4 * i + 1, 16);
+  const int a2 = __shfl_sync(kFull, x, 4 * i + 2, 16);
+  const int a3 = __shfl_sync(kFull, x, 4 * i + 3, 16);
+  const int tr = sel4(j, a0 + a1 + a2 + a3, a0 + a1 - a2 - a3,
+                      a0 - a1 - a2 + a3, a0 - a1 + a2 - a3);
+  const int b0 = __shfl_sync(kFull, tr, 0 + j, 16);
+  const int b1 = __shfl_sync(kFull, tr, 4 + j, 16);
+  const int b2 = __shfl_sync(kFull, tr, 8 + j, 16);
+  const int b3 = __shfl_sync(kFull, tr, 12 + j, 16);
+  return sel4(i, b0 + b1 + b2 + b3, b0 + b1 - b2 - b3, b0 - b1 - b2 + b3,
+              b0 - b1 + b2 - b3);
+}
+
+// Where pred4 finds the value of mode m at (x, y), as a flat index into
+// [e | f3 | h2] (16 entries each), with f3[14] = mode 8's
+// (e1 + 3 e0 + 2) >> 2 and f3[15] = the DC value: no branches.
+__device__ __forceinline__ int pred4_index(int m, int x, int y) {
+  constexpr int F = 16, H = 32;
+  const int zvr = 2 * x - y, i5 = 4 + x - (y >> 1);
+  const int m5 = zvr == -3                         ? F + 2
+                 : (zvr >= 0 && (zvr & 1) == 0)    ? H + i5
+                                                   : F + i5;
+  const int zhd = 2 * y - x;
+  const int m6 = zhd < -1          ? F + 3 + x
+                 : (zhd & 1) == 0  ? H + max(3 - (y - (x >> 1)), 0)
+                                   : F + max(4 - y + (x >> 1), 1);
+  const int m7 = (y & 1) == 0 ? H + 5 + x + (y >> 1) : F + 6 + x + (y >> 1);
+  const int zhu = x + 2 * y, ilow = 2 - y - (x >> 1);
+  const int m8 = zhu > 5          ? 0
+                 : zhu == 5       ? F + 14
+                 : (zhu & 1) == 0 ? H + max(ilow, 0)
+                                  : F + max(ilow, 1);
+  return m == 0   ? 5 + x
+         : m == 1 ? 3 - y
+         : m == 2 ? F + 15
+         : m == 3 ? F + 6 + x + y
+         : m == 4 ? F + 4 + x - y
+         : m == 5 ? m5
+         : m == 6 ? m6
+         : m == 7 ? m7
+                  : m8;
+}
+
+// Inverse core transform of dequantised levels, rounded (+32 >> 6): the
+// stage along axis -2 first, then along axis -1, as the JAX twin does.
+__device__ __forceinline__ int idct_lanes(int d, int i, int j) {
+  const int c0 = __shfl_sync(kFull, d, 0 + j, 16);
+  const int c1 = __shfl_sync(kFull, d, 4 + j, 16);
+  const int c2 = __shfl_sync(kFull, d, 8 + j, 16);
+  const int c3 = __shfl_sync(kFull, d, 12 + j, 16);
+  const int h = inv1d_sel(c0, c1, c2, c3, i);
+  const int r0 = __shfl_sync(kFull, h, 4 * i + 0, 16);
+  const int r1 = __shfl_sync(kFull, h, 4 * i + 1, 16);
+  const int r2 = __shfl_sync(kFull, h, 4 * i + 2, 16);
+  const int r3 = __shfl_sync(kFull, h, 4 * i + 3, 16);
+  return (inv1d_sel(r0, r1, r2, r3, j) + 32) >> 6;
+}
+
+// Start the copies of MB (x, row)'s inputs into buffer `buf`.
+__device__ __forceinline__ void prefetch_mb(FrameSmem& s, const CommitArgs& a,
+                                            int buf, int row, int x, int t) {
+  const int W = 16 * a.mbw, Wc = 8 * a.mbw;
+  if (t < 16) {
+    cp_async16(&s.src_y[buf][16 * t], a.y + (16 * row + t) * W + 16 * x);
+  } else if (t < 32) {
+    const int c = (t - 16) >> 3, r = (t - 16) & 7;
+    cp_async8(&s.src_c[buf][c][8 * r],
+              (c ? a.v : a.u) + (8 * row + r) * Wc + 8 * x);
+  } else if (t < 48) {
+    if (a.is_intra != nullptr)
+      cp_async16(&s.int_y[buf][16 * (t - 32)],
+                 a.iy + (16 * row + t - 32) * W + 16 * x);
+  } else if (t < 64) {
+    const int c = (t - 48) >> 3, r = (t - 48) & 7;
+    if (a.is_intra != nullptr)
+      cp_async8(&s.int_c[buf][c][8 * r],
+                (c ? a.iv : a.iu) + (8 * row + r) * Wc + 8 * x);
+  } else if (t < 68) {
+    if (a.i4_modes != nullptr)
+      cp_async16(&s.i4m[buf][4 * (t - 64)],
+                 a.i4_modes + (row * a.mbw + x) * 16 + 4 * (t - 64));
+  } else if (t < 74) {
+    const int mb = row * a.mbw + x, k = t - 68;
+    const uint8_t* mask = k == 4 ? a.i4_mask : a.is_intra;
+    if (k < 4)
+      cp_async4(&s.prm[buf][k], (k == 0   ? a.i16_mode
+                                 : k == 1 ? a.chroma_mode
+                                 : k == 2 ? a.qp
+                                          : a.qpc) + mb);
+    else if (mask != nullptr)
+      cp_async4(&s.prm[buf][k], mask + (mb & ~3));
+  }
+}
+
+// byte mb & 3 of a prefetched mask word (little-endian)
+__device__ __forceinline__ bool mask_byte(int word, int mb) {
+  return ((word >> (8 * (mb & 3))) & 0xff) != 0;
+}
+
+// Luma of one intra I16x16 MB; thread t < 256 holds pixel / coefficient
+// k = t & 15 of raster 4x4 block b = t >> 4.
+__device__ __forceinline__ void luma_i16(FrameSmem& s, const CommitArgs& a,
+                                         int t, int mb, int buf, int par,
+                                         int luma_base, bool al, bool at,
+                                         int qp) {
+  const int W = 16 * a.mbw;
+  const int lane = t & 31, b = t >> 4, k = t & 15, i = k >> 2, j = k & 3;
+  const int bx = b & 3, by = b >> 2, py = 4 * by + i, px = 4 * bx + j;
+  const int qrem = qp % 6, qper = qp / 6;
+  const int* qmf = s.tab;
+  const int* dmf = s.tab + 96;
+  // lanes 0-15: top[lane]; lanes 16-31: left[lane - 16]; 0 if unavailable
+  const int edge = lane < 16 ? s.top[buf][lane]
+                   : al      ? s.left[par][lane - 16] : 0;
+  const int tl = s.tl[buf][0];
+  // DC sums and plane gradients (weight l - 7 on edge pixel l, -8 on tl)
+  int sum = edge, g = ((lane & 15) - 7) * edge;
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) {
+    sum += __shfl_xor_sync(kFull, sum, o);
+    g += __shfl_xor_sync(kFull, g, o);
+  }
+  const int sum_t = __shfl_sync(kFull, sum, 0);
+  const int sum_l = __shfl_sync(kFull, sum, 16);
+  const int hg = __shfl_sync(kFull, g, 0) - 8 * tl;
+  const int vg = __shfl_sync(kFull, g, 16) - 8 * tl;
+  const int top15 = __shfl_sync(kFull, edge, 15);
+  const int left15 = __shfl_sync(kFull, edge, 31);
+  const int vtop = __shfl_sync(kFull, edge, px);
+  const int hleft = __shfl_sync(kFull, edge, 16 + py);
+  int p;
+  switch (s.prm[buf][0]) {
+    case 0: p = vtop; break;
+    case 1: p = hleft; break;
+    case 2:
+      p = (at && al) ? (sum_t + sum_l + 16) >> 5
+          : at       ? (sum_t + 8) >> 4
+          : al       ? (sum_l + 8) >> 4
+                     : 128;
+      break;
+    default:
+      p = clip255((16 * (left15 + top15) + ((5 * hg + 32) >> 6) * (px - 7)
+                   + ((5 * vg + 32) >> 6) * (py - 7) + 16) >> 5);
+  }
+  const int w = fdct_lanes(s.src_y[buf][16 * py + px] - p, i, j);
+  if (k == 0) s.dcw[b] = w;
+  int lv = 0;
+  if (k != 0) {
+    const int qb = 15 + qper;
+    lv = quant(w, qmf[qrem * 16 + k], qb, (21 << qb) >> 6);
+  }
+  a.ac[mb * 256 + t] = lv;
+  const int deq = dequant(lv, dmf[qrem * 16 + k] << 4, qper - 4);
+  bar_named(kBarLuma, kLumaThreads);
+  if (t < 32) {
+    // luma DC: Hadamard of the raster DC grid, >> 1, quant (qbits + 1),
+    // then the inverse Hadamard and the spec 8.5.10 DC dequant
+    const int had = had4_lanes(s.dcw[k], i, j) >> 1;
+    const int qb = 16 + qper;
+    const int dlv = quant(had, s.tab[192 + qrem], qb, (21 << qb) >> 6);
+    const int l32 = had4_lanes(dlv, i, j) * (s.tab[198 + qrem] << 4);
+    if (lane < 16) {
+      a.dc[mb * 16 + k] = dlv;
+      s.dcv[k] = qper >= 6 ? l32 * (1 << (qper - 6))
+                           : (l32 + (1 << (5 - qper))) >> (6 - qper);
+    }
+  }
+  bar_named(kBarLuma, kLumaThreads);
+  const int r = idct_lanes(k == 0 ? s.dcv[b] : deq, i, j);
+  const int rec = clip255(p + r);
+  a.ry[luma_base + py * W + px] = (uint8_t)rec;
+  if (px == 15) s.left[par ^ 1][py] = rec;
+}
+
+// Luma of one intra I_4x4 MB: warp 0 runs the 16 blocks as a wavefront of
+// 10 steps over bx + 2 by (two blocks, 32 lanes, per step; __syncwarp
+// between steps) on the [17][21] edge buffer; then the luma threads store.
+__device__ __forceinline__ void luma_i4(FrameSmem& s, const CommitArgs& a,
+                                        int t, int mb, int buf, int par,
+                                        int luma_base, bool al, bool at,
+                                        int qp) {
+  const int W = 16 * a.mbw;
+  if (t < 32) {
+    const int lane = t, slot = lane >> 4, k = lane & 15, i = k >> 2,
+              j = k & 3;
+    const int qrem = qp % 6, qper = qp / 6;
+    const int qb = 15 + qper, fq = (21 << qb) >> 6;
+    const int qmf = s.tab[qrem * 16 + k], dmf = s.tab[96 + qrem * 16 + k];
+    const int edge = lane < 16 ? s.top[buf][lane]
+                     : al      ? s.left[par][lane - 16] : 0;
+    const int tl = s.tl[buf][0];
+    const int top15 = __shfl_sync(kFull, edge, 15);
+    if (lane < 16) s.ext[1 + lane] = edge;
+    else s.ext[(lane - 15) * 21] = edge;
+    if (lane == 0) s.ext[0] = tl;
+    if (lane < 4) s.ext[17 + lane] = top15;
+    if (lane < 16) a.dc[mb * 16 + lane] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int step = 0; step < 10; ++step) {
+      // blocks of step s = bx + 2 by: slot 0 takes the top one, slot 1
+      // the one below-left if there is one, else twins slot 0
+      const int by0 = step < 2 ? 0 : (step - 2) >> 1, bx0 = step - 2 * by0;
+      const bool valid = slot == 0 || (bx0 >= 2 && by0 < 3);
+      const int bx = slot && valid ? bx0 - 2 : bx0;
+      const int by = slot && valid ? by0 + 1 : by0;
+      const int r = 4 * by + bx, r4 = 4 * by, c4 = 4 * bx;
+      const int pidx = pred4_index(s.i4m[buf][r], j, i);
+      // edge vector e = [l3, l2, l1, l0, tl, t0..t7, t7]: one load per
+      // lane, no branches (lanes 14-15 read a cell they then ignore)
+      const int kk0 = k == 13 ? 7 : min(k - 5, 7);
+      const int kind = (kKindBits >> (2 * r)) & 3;
+      const bool tr_ok = kind == 2 || (kind == 1 && at);
+      const int kk = (kk0 < 4 || tr_ok) ? kk0 : 3;
+      const int addr = k < 4    ? (r4 + 4 - k) * 21 + c4
+                       : k == 4 ? r4 * 21 + c4
+                                : r4 * 21 + c4 + 1 + kk;
+      const int ev = k < 14 ? s.ext[addr] : 0;
+      const int prev = __shfl_sync(kFull, ev, (k + 15) & 15, 16);
+      const int next = __shfl_sync(kFull, ev, (k + 1) & 15, 16);
+      const int l3 = __shfl_sync(kFull, ev, 0, 16);
+      const int l2 = __shfl_sync(kFull, ev, 1, 16);
+      const int sum_l = l3 + l2 + __shfl_sync(kFull, ev, 2, 16)
+                        + __shfl_sync(kFull, ev, 3, 16);
+      const int sum_t = __shfl_sync(kFull, ev, 5, 16)
+                        + __shfl_sync(kFull, ev, 6, 16)
+                        + __shfl_sync(kFull, ev, 7, 16)
+                        + __shfl_sync(kFull, ev, 8, 16);
+      const bool al_b = bx > 0 || al, at_b = by > 0 || at;
+      const int dcv = (at_b && al_b) ? (sum_t + sum_l + 4) >> 3
+                      : at_b         ? (sum_t + 2) >> 2
+                      : al_b         ? (sum_l + 2) >> 2
+                                     : 128;
+      // lane k holds e[k], f3[k], h2[k]; f3[14] and f3[15] hold mode 8's
+      // corner value and the DC value
+      const int f3 = k == 15   ? dcv
+                     : k == 14 ? (l2 + 3 * l3 + 2) >> 2
+                     : (k == 0 || k == 13) ? 0
+                                           : (prev + 2 * ev + next + 2) >> 2;
+      const int h2 = k >= 13 ? 0 : (ev + next + 1) >> 1;
+      const int src = pidx & 15;
+      const int pe = __shfl_sync(kFull, ev, src, 16);
+      const int pf = __shfl_sync(kFull, f3, src, 16);
+      const int ph = __shfl_sync(kFull, h2, src, 16);
+      const int p = pidx < 16 ? pe : pidx < 32 ? pf : ph;
+      const int w = fdct_lanes(s.src_y[buf][(r4 + i) * 16 + c4 + j] - p, i, j);
+      const int lv = quant(w, qmf, qb, fq);
+      const int rr = idct_lanes(dequant(lv, dmf << 4, qper - 4), i, j);
+      if (valid) {
+        a.ac[mb * 256 + r * 16 + k] = lv;
+        s.ext[(r4 + 1 + i) * 21 + c4 + 1 + j] = clip255(p + rr);
+      }
+      __syncwarp();
+    }
+  }
+  bar_named(kBarLuma, kLumaThreads);
+  const int py = t >> 4, px = t & 15;
+  const int rec = s.ext[(1 + py) * 21 + 1 + px];
+  a.ry[luma_base + py * W + px] = (uint8_t)rec;
+  if (px == 15) s.left[par ^ 1][py] = rec;
+}
+
+// Chroma of one intra MB; thread ct = t - 256 < 128 holds component
+// c = ct >> 6, pixel / coefficient k = ct & 15 of 4x4 block cb = (ct >> 4) & 3.
+__device__ __forceinline__ void chroma_i8(FrameSmem& s, const CommitArgs& a,
+                                          int ct, int mb, int buf, int par,
+                                          int chroma_base, bool al, bool at,
+                                          int qpc) {
+  const int Wc = 8 * a.mbw;
+  const int lane = ct & 31, c = ct >> 6, p = ct & 63;
+  const int cb = p >> 4, k = p & 15, i = k >> 2, j = k & 3;
+  const int py = 4 * (cb >> 1) + i, px = 4 * (cb & 1) + j;
+  const int crem = qpc % 6, cper = qpc / 6;
+  uint8_t* crec = c ? a.rv : a.ru;
+  // lanes 0-7: top[lane]; lanes 8-15: left[lane - 8]; others 0
+  const int edge = lane < 8              ? s.ctop[buf][c][lane]
+                   : (lane < 16 && al)   ? s.cleft[par][c][lane - 8] : 0;
+  const int tl = s.tl[buf][1 + c];
+  int sum = edge, g = ((lane & 7) - 3) * edge;
+  sum += __shfl_xor_sync(kFull, sum, 1);
+  sum += __shfl_xor_sync(kFull, sum, 2);
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) g += __shfl_xor_sync(kFull, g, o);
+  const int st0 = __shfl_sync(kFull, sum, 0), st1 = __shfl_sync(kFull, sum, 4);
+  const int sl0 = __shfl_sync(kFull, sum, 8), sl1 = __shfl_sync(kFull, sum, 12);
+  const int hg = __shfl_sync(kFull, g, 0) - 4 * tl;
+  const int vg = __shfl_sync(kFull, g, 8) - 4 * tl;
+  const int top7 = __shfl_sync(kFull, edge, 7);
+  const int left7 = __shfl_sync(kFull, edge, 15);
+  const int vtop = __shfl_sync(kFull, edge, px);
+  const int hleft = __shfl_sync(kFull, edge, 8 + py);
+  int pr;
+  switch (s.prm[buf][1]) {
+    case 0:   // quadrant cb's DC: (0,0) both, (0,1) top first,
+              // (1,0) left first, (1,1) both
+      pr = cb == 0 ? ((at && al) ? (st0 + sl0 + 4) >> 3
+                      : at       ? (st0 + 2) >> 2
+                      : al       ? (sl0 + 2) >> 2 : 128)
+         : cb == 1 ? (at ? (st1 + 2) >> 2 : al ? (sl0 + 2) >> 2 : 128)
+         : cb == 2 ? (al ? (sl1 + 2) >> 2 : at ? (st0 + 2) >> 2 : 128)
+                   : ((at && al) ? (st1 + sl1 + 4) >> 3
+                      : at       ? (st1 + 2) >> 2
+                      : al       ? (sl1 + 2) >> 2 : 128);
+      break;
+    case 1: pr = hleft; break;
+    case 2: pr = vtop; break;
+    default:
+      pr = clip255((16 * (left7 + top7) + ((17 * hg + 16) >> 5) * (px - 3)
+                    + ((17 * vg + 16) >> 5) * (py - 3) + 16) >> 5);
+  }
+  const int w = fdct_lanes(s.src_c[buf][c][8 * py + px] - pr, i, j);
+  if (k == 0) s.cdcw[c][cb] = w;
+  int lv = 0;
+  if (k != 0) {
+    const int qb = 15 + cper;
+    lv = quant(w, s.tab[crem * 16 + k], qb, (21 << qb) >> 6);
+  }
+  (c ? a.vac : a.uac)[mb * 64 + p] = lv;
+  const int deq = dequant(lv, s.tab[96 + crem * 16 + k] << 4, cper - 4);
+  bar_named(kBarChroma, kChromaThreads);
+  int d = deq;
+  if (k == 0) {
+    // 2x2 DC Hadamard + quant (qbits + 1), inverse, spec 8.5.11 dequant
+    const int x00 = s.cdcw[c][0], x01 = s.cdcw[c][1];
+    const int x10 = s.cdcw[c][2], x11 = s.cdcw[c][3];
+    const int qb = 16 + cper, mf = s.tab[192 + crem], f = (21 << qb) >> 6;
+    const int l0 = quant(x00 + x01 + x10 + x11, mf, qb, f);
+    const int l1 = quant(x00 - x01 + x10 - x11, mf, qb, f);
+    const int l2 = quant(x00 + x01 - x10 - x11, mf, qb, f);
+    const int l3 = quant(x00 - x01 - x10 + x11, mf, qb, f);
+    (c ? a.vdc : a.udc)[mb * 4 + cb] = sel4(cb, l0, l1, l2, l3);
+    const int fi = sel4(cb, l0 + l1 + l2 + l3, l0 - l1 + l2 - l3,
+                        l0 + l1 - l2 - l3, l0 - l1 - l2 + l3);
+    d = ((fi * (s.tab[198 + crem] << 4)) * (1 << cper)) >> 5;
+  }
+  const int rec = clip255(pr + idct_lanes(d, i, j));
+  crec[chroma_base + py * Wc + px] = (uint8_t)rec;
+  if (px == 7) s.cleft[par ^ 1][c][py] = rec;
+}
+
+// Mixed lane (intra-in-P, not intra): copy the inter reconstruction from
+// the prefetched tile and write zero levels.
+__device__ __forceinline__ void inter_mb(FrameSmem& s, const CommitArgs& a,
+                                         int t, int mb, int buf, int par,
+                                         int luma_base, int chroma_base) {
+  if (t < kLumaThreads) {
+    const int py = t >> 4, px = t & 15;
+    const int rec = s.int_y[buf][t];
+    a.ry[luma_base + py * 16 * a.mbw + px] = (uint8_t)rec;
+    if (px == 15) s.left[par ^ 1][py] = rec;
+    a.ac[mb * 256 + t] = 0;
+    if (t < 16) a.dc[mb * 16 + t] = 0;
+  } else {
+    const int ct = t - kLumaThreads, c = ct >> 6, p = ct & 63;
+    const int py = p >> 3, px = p & 7;
+    const int rec = s.int_c[buf][c][p];
+    (c ? a.rv : a.ru)[chroma_base + py * 8 * a.mbw + px] = (uint8_t)rec;
+    if (px == 7) s.cleft[par ^ 1][c][py] = rec;
+    (c ? a.vac : a.uac)[mb * 64 + p] = 0;
+    if (p < 4) (c ? a.vdc : a.udc)[mb * 4 + p] = 0;
+  }
+}
+
+constexpr int kStats = 9;   // int64 counters per block, when asked for
+
+__device__ __forceinline__ long long globaltimer() {
+  long long v;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
+  return v;
+}
+
+// One block per co-resident slot walks MB rows blockIdx.x, + grid, ...
+// left to right. Before MB (x, y) it waits until row y - 1 has published
+// progress > x: the MB reads only its left (this block's previous MB, kept
+// on chip), top and top-left neighbours; the top-right MB is never read
+// (kKind treats it as unavailable, as the JAX scan does). prog[0..mbh-1]
+// is each row's count of finished MBs, prog[mbh] the error word; the
+// caller zeroes both.
+//
+// Warps 0-11 compute. Warp 12 (waiter) polls the row above for the next
+// MB and loads its top edges while the compute warps work on this one;
+// warp 13 (releaser) publishes each finished MB while the compute warps
+// start the next. Per MB: kBarStart opens it (compute and waiter sync;
+// the releaser arrives once it has seen the previous MB done), kBarDone
+// closes it (compute arrive, the releaser syncs), so no barrier phase can
+// take an arrival meant for the next one.
+//
+// `stats`, when not null, gets kStats int64 per block: SM cycles that
+// thread 0 (luma) waited at kBarStart and computed I16 / I_4x4 MBs, that
+// thread 256 (chroma) computed, that the waiter polled, the block's MBs
+// and I_4x4 MBs, and its whole run in cycles and in nanoseconds.
+__global__ void __launch_bounds__(kThreads, 1)
+commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
+  __shared__ FrameSmem s;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int mbw = a.mbw, mbh = a.mbh;
+  int* err = prog + mbh;
+  long long* st = stats != nullptr ? stats + kStats * blockIdx.x : nullptr;
+  const long long c_start = clock64(), ns_start = globaltimer();
+  long long n_wait = 0, n_main = 0, n_i4 = 0, n_aux = 0;   // for stats
+
+  if (warp == kReleaserWarp) {
+    bar_arrive(kBarStart, kThreads);
+    for (int row = blockIdx.x; row < mbh; row += grid) {
+      for (int x = 0; x < mbw; ++x) {
+        bar_named(kBarDone, kComputeThreads + 32);
+        if (s.quit) return;
+        if (x + 1 < mbw || row + grid < mbh) bar_arrive(kBarStart, kThreads);
+        st_release(prog + row, x + 1);   // all lanes: one store, no split
+      }
+    }
+    return;
+  }
+
+  if (warp == kWaiterWarp) {
+    const int W = 16 * mbw, Wc = 8 * mbw;
+    int seq = 0;
+    for (int row = blockIdx.x; row < mbh; row += grid) {
+      int seen = 0;   // last progress read from row - 1
+      for (int x = 0; x < mbw; ++x, ++seq) {
+        const int buf = seq & 1;
+        int ab = 0;
+        const long long c0 = clock64();
+        // every lane polls the same word (one load), so the warp reaches
+        // the barrier undivided
+        if (row > 0 && seen <= x) {
+          for (int it = 1;; ++it) {
+            seen = ld_acquire(prog + row - 1);
+            if (seen > x) break;
+            if ((it & 255) == 0) {
+              if (ld_relaxed(err) != 0) { ab = 1; break; }
+              if (it >= kSpinLimit) {
+                if (lane == 0) atomicExch(err, 1);
+                ab = 1;
+                break;
+              }
+            }
+          }
+        }
+        n_aux += clock64() - c0;   // polling
+        __syncwarp();
+        // the row above's last row of pixels, read past L1 after the
+        // acquire (lanes 0-15 luma, 16-23 U, 24-31 V)
+        const bool at = row > 0, al = x > 0;
+        if (lane < 16) {
+          s.top[buf][lane] =
+              at ? ldcg_u8(a.ry + (16 * row - 1) * W + 16 * x + lane) : 0;
+        } else {
+          const int c = (lane - 16) >> 3, k = lane & 7;
+          s.ctop[buf][c][k] =
+              at ? ldcg_u8((c ? a.rv : a.ru) + (8 * row - 1) * Wc + 8 * x + k)
+                 : 0;
+        }
+        if (lane < 3) {
+          const uint8_t* plane = lane == 0 ? a.ry : lane == 1 ? a.ru : a.rv;
+          const int w = lane == 0 ? W : Wc, sz = lane == 0 ? 16 : 8;
+          s.tl[buf][lane] =
+              (at && al) ? ldcg_u8(plane + (sz * row - 1) * w + sz * x - 1)
+                         : 0;
+        }
+        if (lane == 0) s.abort[buf] = ab;
+        __syncwarp();
+        bar_named(kBarStart, kThreads);
+        if (ab) return;
+      }
+    }
+    if (st != nullptr && lane == 0) st[4] = n_aux;
+    return;
+  }
+
+  for (int idx = t; idx < 208; idx += kComputeThreads) s.tab[idx] = a.tab[idx];
+  if (t == 0) s.quit = 0;
+  if ((int)blockIdx.x < mbh) prefetch_mb(s, a, 0, blockIdx.x, 0, t);
+  cp_async_commit();
+  int seq = 0;   // this block's MB count: buffer parity
+  for (int row = blockIdx.x; row < mbh; row += grid) {
+    for (int x = 0; x < mbw; ++x, ++seq) {
+      const int buf = seq & 1, par = x & 1;
+      const int nrow = x + 1 < mbw ? row : row + grid;
+      if (nrow < mbh) prefetch_mb(s, a, buf ^ 1, nrow, x + 1 < mbw ? x + 1 : 0,
+                                  t);
+      cp_async_commit();
+      cp_async_wait_prev();
+      const long long c0 = clock64();
+      bar_named(kBarStart, kThreads);
+      // bar.sync may let the warp run on until its next shared-memory
+      // access: read the clock only once a value read after it is in
+      int aborted = s.abort[buf];
+      asm volatile("add.s32 %0, %0, 0;" : "+r"(aborted));
+      const long long c1 = clock64();
+      n_wait += c1 - c0;
+      if (aborted) {
+        if (t == 0) s.quit = 1;
+        bar_arrive(kBarDone, kComputeThreads + 32);
+        asm volatile("cp.async.wait_all;" ::: "memory");
+        return;
+      }
+      const int mb = row * mbw + x;
+      const bool al = x > 0, at = row > 0;
+      const int* prm = s.prm[buf];
+      const bool i4 = a.i4_mask != nullptr && mask_byte(prm[4], mb);
+      const int luma_base = 16 * row * 16 * mbw + 16 * x;
+      const int chroma_base = 8 * row * 8 * mbw + 8 * x;
+      if (a.is_intra != nullptr && !mask_byte(prm[5], mb)) {
+        inter_mb(s, a, t, mb, buf, par, luma_base, chroma_base);
+      } else if (t < kLumaThreads) {
+        if (i4)
+          luma_i4(s, a, t, mb, buf, par, luma_base, al, at, prm[2]);
+        else
+          luma_i16(s, a, t, mb, buf, par, luma_base, al, at, prm[2]);
+      } else {
+        chroma_i8(s, a, t - kLumaThreads, mb, buf, par, chroma_base, al, at,
+                  prm[3]);
+      }
+      const long long dc = clock64() - c1;
+      if (i4 && t < kLumaThreads) n_i4 += dc;
+      else n_main += dc;   // I16 luma, or chroma
+      n_aux += i4;
+      bar_arrive(kBarDone, kComputeThreads + 32);
+    }
+  }
+  if (st != nullptr && t == 0) {
+    st[0] = n_wait;
+    st[1] = n_main;
+    st[2] = n_i4;
+    st[5] = seq;
+    st[6] = n_aux;
+    st[7] = clock64() - c_start;
+    st[8] = globaltimer() - ns_start;
+  }
+  if (st != nullptr && t == kLumaThreads) st[3] = n_main;
+}
+
 }  // namespace
 
 // Launch the commit of anti-diagonal d on `stream` (one block per MB).
@@ -527,6 +1224,48 @@ extern "C" int x264t_commit_diag(const CommitArgs* a, int d, void* stream) {
   if (y1 < y0) return (int)cudaErrorInvalidValue;
   commit_diag_kernel<<<y1 - y0 + 1, 256, 0, (cudaStream_t)stream>>>(*a, d,
                                                                     y0);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+__global__ void empty_kernel() {}
+}  // namespace
+
+// One launch of an empty kernel on `stream`: the floor that a ctypes
+// launch costs, for splitting a launch's time into launch and work.
+extern "C" int x264t_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+// How many blocks of commit_frame_kernel the card holds at once (blocks
+// per SM times SMs), or minus a CUDA error code.
+extern "C" int x264t_commit_capacity() {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, commit_frame_kernel, kThreads, 0);
+  return e == cudaSuccess ? per_sm * sms : -(int)e;
+}
+
+// Launch the commit of a whole frame on `stream`: `grid` persistent blocks
+// (1 <= grid <= min(mbh, capacity)), all co-resident by a cooperative
+// launch. `prog` holds mbh + 1 zeroed int32: each row's progress, then the
+// error word, which the kernel sets when a wavefront wait runs past its
+// bound. `stats`: null, or grid x kStats zeroed int64 (see the kernel).
+// Returns the launch's CUDA error (0 on success).
+extern "C" int x264t_commit_frame(const CommitArgs* a, int* prog, int grid,
+                                  long long* stats, void* stream) {
+  if (grid < 1 || grid > a->mbh) return (int)cudaErrorInvalidValue;
+  CommitArgs args = *a;
+  void* params[] = {&args, &prog, &grid, &stats};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)commit_frame_kernel, dim3(grid), dim3(kThreads), params, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

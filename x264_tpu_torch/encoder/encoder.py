@@ -2,38 +2,146 @@
 (x264_tpu/encoder/encoder.py), on an explicit torch device.
 
 Public API as in x264_tpu: Encoder(params, device=...), .headers(),
-.encode(pic) -> (nals, PicOut), .delayed_frames(), .close(). The
-parameter handling, SPS/PPS/SEI writers and rate control are x264_tpu's
-own host modules. What is ported so far encodes I / IDR frames (CAVLC);
-other frame types raise NotImplementedError naming their ROADMAP item.
+.encode(pic) -> (nals, PicOut), .delayed_frames(), .close(). The frame
+types, `Picture`, `PicOut`, `EncoderError` and `validate_parameters` are
+copied from x264_tpu's module unchanged; parameters, SPS/PPS/SEI writers
+and rate control are the port's own copies of x264_tpu's host modules.
+What is ported so far encodes I / IDR frames (CAVLC); other frame types
+raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from x264_tpu import params as P
-from x264_tpu.encoder.encoder import (TYPE_B, TYPE_BREF, TYPE_I, TYPE_IDR,
-                                      TYPE_P, EncoderError, PicOut,
-                                      Picture, validate_parameters)
-from x264_tpu.encoder.ratecontrol import RateControl
-from x264_tpu.entropy import nal as nal_mod
-from x264_tpu.entropy import sets
-from x264_tpu.entropy.nal import annexb_bytes
-from x264_tpu.entropy.slice_hdr import (SLICE_TYPE_B, SLICE_TYPE_I,
-                                        SLICE_TYPE_P, SliceHeader)
-
+from .. import params as P
 from ..device import resolve_device
+from ..entropy import nal as nal_mod
+from ..entropy import sets
+from ..entropy.nal import annexb_bytes
+from ..entropy.slice_hdr import (SLICE_TYPE_B, SLICE_TYPE_I, SLICE_TYPE_P,
+                                 SliceHeader)
 from ..ops import mc as mc_ops
-from . import frame_encode
-from .intra import PayloadOverflow, aud_nal
-from .lookahead import Lookahead
+
+# frame_encode, intra, lookahead and ratecontrol import the frame types
+# below from this module, so this module imports them inside the functions
+# that use them, as x264_tpu/encoder/encoder.py does.
 
 __all__ = ["Encoder", "Picture", "PicOut", "EncoderError", "annexb_bytes"]
+
+# ---- copied from x264_tpu/encoder/encoder.py (frame types, picture
+# dataclasses, validate_parameters), unchanged
+
+
+# frame types (reference x264.h:255-263)
+TYPE_AUTO, TYPE_IDR, TYPE_I, TYPE_P, TYPE_BREF, TYPE_B, TYPE_KEYFRAME = \
+    0, 1, 2, 3, 4, 5, 6
+
+
+@dataclass
+class Picture:
+    """Input picture (reference x264_picture_t, x264.h:864-906)."""
+    planes: list                   # [Y, U, V] numpy arrays (input size)
+    pts: int = 0
+    i_type: int = TYPE_AUTO
+    qp_offset: float = 0.0
+    forced_qp: int = -1
+    param: Optional[P.Params] = None
+    opaque: object = None          # handed back via param.nalu_process
+
+
+@dataclass
+class PicOut:
+    pts: int = 0
+    dts: int = 0
+    i_type: int = TYPE_IDR
+    b_keyframe: bool = False
+    qp: int = 0
+    recon: Optional[list] = None   # reconstructed planes (display size)
+    psnr: Optional[tuple] = None
+    ssim: Optional[float] = None
+
+
+class EncoderError(Exception):
+    pass
+
+
+def validate_parameters(p: P.Params) -> P.Params:
+    """Clamp/reconcile params (reference validate_parameters encoder.c:423).
+
+    Round-1 subset: grows as features land."""
+    p = p.copy()
+    if p.width <= 0 or p.height <= 0:
+        raise EncoderError(f"invalid size {p.width}x{p.height}")
+    if p.width % 2 or (p.height % 2 and p.csp == P.CSP_I420):
+        raise EncoderError("width/height must be even for 4:2:0")
+    if p.bitdepth not in (8, 10):
+        raise EncoderError("bitdepth must be 8 or 10")
+    qp_max_spec = P.QP_MAX_SPEC + p.qp_bd_offset
+    p.rc.qp_min = max(0, min(p.rc.qp_min, qp_max_spec))
+    p.rc.qp_max = max(0, min(p.rc.qp_max, qp_max_spec))
+    if p.rc.rc_method == P.RC_CQP:
+        if p.rc.qp_constant < 0:
+            p.rc.qp_constant = 23 + p.qp_bd_offset
+        qp = p.rc.qp_constant
+        # per-slice-type CQP (reference validate_parameters: qp_min/max
+        # span the I/P/B constants; I frames run ~qp-3 via ip_factor —
+        # clamping all types to qp cost 1.8 dB on every I frame)
+        import math as _math
+        qp_i = int(round(qp - 6.0 * _math.log2(max(p.rc.ip_factor, 0.01))))
+        qp_b = int(round(qp + 6.0 * _math.log2(max(p.rc.pb_factor, 0.01))))
+        p.rc.qp_min = max(0, min(qp, qp_i, qp_b))
+        p.rc.qp_max = min(qp_max_spec, max(qp, qp_i, qp_b))
+        p.rc.aq_mode = P.AQ_NONE
+        p.rc.mb_tree = False
+    p.frame_reference = max(1, min(p.frame_reference, P.REF_MAX))
+    # current multi-ref ceiling: 2 L0 references (per-MB selection +
+    # te() ref_idx); presets asking for more are clamped so the SPS/PPS
+    # signal what the MB layer can actually use
+    p.frame_reference = min(p.frame_reference, 2)
+    p.bframe = max(0, min(p.bframe, P.BFRAME_MAX))
+    if p.keyint_max <= 0:
+        p.keyint_max = 1
+    if p.keyint_min < 0:
+        p.keyint_min = min(p.keyint_max // 10, 25) if p.keyint_max > 1 else 1
+    p.keyint_min = max(1, min(p.keyint_min, p.keyint_max // 2 + 1))
+    if p.keyint_max == 1:
+        p.scenecut_threshold = 0
+        p.intra_refresh = False
+    if p.intra_refresh:
+        # PIR constraints (reference encoder.c:1087-1098): single ref;
+        # B frames additionally unsupported here until the sweep handles
+        # bi-directional reference geometry
+        p.frame_reference = 1
+        p.bframe = 0
+    p.rc.lookahead = max(0, min(p.rc.lookahead, P.LOOKAHEAD_MAX))
+    p.rc.lookahead = min(p.rc.lookahead, p.keyint_max)
+    # MB-tree drives per-MB offsets from the lookahead; until the ABR/VBV
+    # bit predictors are taught the offset-induced complexity shift
+    # (reference rate_estimate_qscale folds it in), keep it to CRF where
+    # the rate target is implicit
+    if p.rc.rc_method != P.RC_CRF:
+        p.rc.mb_tree = False
+    if p.bframe == 0:
+        p.bframe_pyramid = P.B_PYRAMID_NONE
+        p.bframe_adaptive = P.B_ADAPT_NONE
+    # round-1 feature gates
+    if p.analyse.weighted_pred > 1:
+        p.analyse.weighted_pred = 1   # SMART's dup-ref trick not needed:
+        # weights apply directly on the single signaled ref
+    # 8x8 transform unimplemented: must stay off until the mb-layer writes
+    # transform_size_8x8_flag for inter MBs (spec 7.3.5)
+    p.analyse.transform_8x8 = False
+    if p.interlaced:
+        raise EncoderError("interlaced encoding not yet implemented")
+    if p.bitdepth != 8:
+        raise EncoderError("10-bit not yet wired end-to-end")
+    return p
 
 
 def frame_redispatch(enc, job):
@@ -42,6 +150,7 @@ def frame_redispatch(enc, job):
     dispatch advances them."""
     saved = (enc.frame_num, enc.poc)
     enc.frame_num, enc.poc = job["pre_state"]
+    from . import frame_encode
     try:
         return frame_encode.dispatch_frame(enc, job["planes"], job["ftype"],
                                            job["qp"], ref_tag=job["ref_tag"],
@@ -75,6 +184,8 @@ class Encoder:
         # IDR is decided, not when it is dispatched)
         self._kf_decided = -(1 << 30)
         self.poc = 0
+        from .lookahead import Lookahead
+        from .ratecontrol import RateControl
         self.rc = RateControl(self.p)
         self._lookahead = Lookahead(self.p)
         self._dpb: list = []
@@ -176,6 +287,7 @@ class Encoder:
     def _enqueue_frame(self, planes, ftype, pic, idx,
                        tree_off=None) -> None:
         """Dispatch one frame in coding order and append its job."""
+        from . import frame_encode
         if ftype in (TYPE_B, TYPE_BREF):
             raise NotImplementedError("B frames are not ported yet "
                                       "(ROADMAP item 11)")
@@ -208,6 +320,7 @@ class Encoder:
             "opaque": pic.opaque})
 
     def _finalize_job(self, job) -> tuple[list, PicOut]:
+        from .intra import PayloadOverflow, aud_nal
         pts, ftype, is_idr, qp, planes = (job["pts"], job["ftype"],
                                           job["is_idr"], job["qp"],
                                           job["planes"])
@@ -323,6 +436,7 @@ class Encoder:
     def _overflow_reencode(self, job):
         """Payload overflow: re-encode the frame at higher QP, repair its
         DPB entry and re-dispatch in-flight frames."""
+        from .intra import PayloadOverflow
         qp_try = job["qp"]
         while True:
             qp_try = min(qp_try + 4, P.QP_MAX_SPEC)

@@ -6,8 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x264_tpu.encoder.encoder import TYPE_I, TYPE_IDR, TYPE_P
-from x264_tpu.ops.tables import chroma_qp
+from ..ops.tables import chroma_qp
+from .encoder import TYPE_I, TYPE_IDR, TYPE_P
 
 
 def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,

@@ -11,7 +11,7 @@ One pipeline function per frame, on the frame's device:
   4. DEBLOCK: all-intra strengths (ops/deblock.deblock_frame).
 
 The slice header, NAL wrapping and rate control run on the host, through
-the x264_tpu modules that import no JAX.
+the port's copies of x264_tpu's host modules.
 """
 
 from __future__ import annotations
@@ -19,17 +19,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x264_tpu.entropy import nal as nal_mod
-from x264_tpu.entropy.bits import BitWriter, append_bitstring
-from x264_tpu.entropy.slice_hdr import slice_header_write
-from x264_tpu.encoder.encoder import TYPE_IDR
-from x264_tpu.params import ANALYSE_I4x4
-
 from ..device import const
+from ..entropy import nal as nal_mod
+from ..entropy.bits import BitWriter, append_bitstring
 from ..entropy.cavlc_dev import encode_i16x16_frame_dev, words_to_bytes
+from ..entropy.slice_hdr import slice_header_write
 from ..ops import pixel, predict
 from ..ops.commit import _i4_block_avail, commit
 from ..ops.deblock import deblock_frame, intra_strengths
+from ..params import ANALYSE_I4x4
+from .encoder import TYPE_IDR
 from .frame_encode import build_qp_maps
 
 

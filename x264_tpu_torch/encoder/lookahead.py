@@ -13,11 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from x264_tpu.encoder.encoder import (TYPE_AUTO, TYPE_B, TYPE_BREF,
-                                      TYPE_I, TYPE_IDR, TYPE_KEYFRAME,
-                                      TYPE_P)
-
 from ..ops.mc import _clamped
+from .encoder import (TYPE_AUTO, TYPE_B, TYPE_BREF, TYPE_I, TYPE_IDR,
+                      TYPE_KEYFRAME, TYPE_P)
 
 
 def lowres_plane(y):

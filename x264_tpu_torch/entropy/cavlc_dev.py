@@ -17,13 +17,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x264_tpu.entropy import vlc_tables as V
-from x264_tpu.entropy.cavlc import LUMA4x4_RASTER
-from x264_tpu.ops.tables import ZIGZAG4_FRAME
-
 from ..device import const
+from ..ops.tables import ZIGZAG4_FRAME
+from . import vlc_tables as V
 
 BLOCK_SLOTS = 36
+# luma 4x4 block coding order (z-scan) -> raster position in the MB 4x4
+# grid, as x264_tpu/entropy/cavlc.py has it
+LUMA4x4_RASTER = np.array(
+    [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15])
 _M32 = 0xFFFFFFFF
 _i64 = torch.int64
 

@@ -7,12 +7,14 @@ Two versions of one function, with the outputs of x264_tpu's
   the D = mbw + mbh - 1 anti-diagonals and indexes each diagonal's MBs
   directly in raster planes. It runs on any device.
 - the hand-written CUDA kernel in `csrc/commit.cu` (the port of the Pallas
-  kernel `x264_tpu/ops/pallas/commit.py::commit_i16_pallas`), one launch
-  per diagonal.
+  kernel `x264_tpu/ops/pallas/commit.py::commit_i16_pallas`): one
+  persistent launch per frame whose blocks walk MB rows and wait on the
+  row above (`commit_cuda`).
 
 `commit(...)` dispatches on the input tensors' device: CPU tensors go to
 `commit_ref`, CUDA tensors to the kernel. `commit.launches` counts kernel
-launches.
+launches. `commit_cuda_diag` keeps the first port's one-launch-per-diagonal
+kernel, off the main path, for timing the two side by side.
 
 Every unavailable neighbour pixel reads as 0, which is what the JAX scan's
 zero-initialised skewed planes give; valid modes never read one anyway.
@@ -30,14 +32,15 @@ import threading
 import numpy as np
 import torch
 
-from x264_tpu.ops import tables
-
 from ..device import const
-from . import dct, predict, quant
+from . import dct, predict, quant, tables
 
 # z-scan coding order of the 16 luma 4x4 blocks (spec figure 6-10)
 I4_ZX = np.array([0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3])
 I4_ZY = np.array([0, 0, 1, 1, 0, 0, 1, 1, 2, 2, 3, 3, 2, 2, 3, 3])
+# raster blocks (bx + 4 by) in the frame kernel's order: a wavefront over
+# s = bx + 2 by, whose blocks of one step depend only on earlier steps
+I4_WAVEFRONT = sorted(range(16), key=lambda r: ((r & 3) + 2 * (r >> 2), r))
 # in-MB blocks whose above-right 4x4 neighbour is unavailable per the
 # z-scan decoding-order rule (spec 6.4.12.3): raster (bx, by) pairs
 _I4_TR_UNAVAIL_INMB = {(1, 1), (3, 1), (3, 2), (1, 3), (3, 3)}
@@ -120,10 +123,15 @@ def _encode_chroma_i8(src, pred, qpc):
     return dc_lv, ac_lv, recon
 
 
-def _i4_commit_mb(src, left16, top16, tl_mb, al, at, modes16, qp):
-    """Exact I_4x4 reconstruction of [L] MBs: 16 sequential z-scan block
-    steps on an edge buffer ext [L, 17, 21] (row 0 = tl + top16 + 4 spill
+def _i4_commit_mb(src, left16, top16, tl_mb, al, at, modes16, qp,
+                  order=None):
+    """Exact I_4x4 reconstruction of [L] MBs: 16 sequential block steps
+    on an edge buffer ext [L, 17, 21] (row 0 = tl + top16 + 4 spill
     columns, column 0 = tl + left16, interior = progressive recon).
+    `order` lists the raster blocks (bx + 4 by) in the order they are
+    committed; z-scan by default. Any order that puts each block after
+    its left, top, top-left and top-right neighbours gives the same bits
+    (I4_WAVEFRONT is the frame kernel's).
     Returns (lv [L,16,4,4] raster full 16-coeff blocks, recon [L,16,16])."""
     L = src.shape[0]
     dev = src.device
@@ -135,9 +143,10 @@ def _i4_commit_mb(src, left16, top16, tl_mb, al, at, modes16, qp):
     lv_all = torch.zeros((L, 16, 4, 4), dtype=torch.int32, device=dev)
     src = src.to(torch.int32)
     ones = torch.ones_like(al)
-    for z in range(16):
-        bx, by = int(I4_ZX[z]), int(I4_ZY[z])
-        r = by * 4 + bx
+    if order is None:
+        order = [int(y) * 4 + int(x) for x, y in zip(I4_ZX, I4_ZY)]
+    for r in order:
+        bx, by = r % 4, r // 4
         c4, r4 = bx * 4, by * 4
         left4 = ext[:, r4 + 1:r4 + 5, c4]
         top8r = ext[:, r4, c4 + 1:c4 + 9]
@@ -197,14 +206,16 @@ def _put(rec, xs, ys, s, vals):
 
 def commit_ref(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
                is_intra=None, inter_planes=None, i4_mask=None,
-               i4_modes=None):
+               i4_modes=None, order=None):
     """Plain PyTorch twin of intra._commit_scan (bit-identical).
 
     y [H, W], u/v [H/2, W/2] uint8; i16_mode, chroma_mode, qp_mb, qpc_mb
     [mbh, mbw] int; optional i4_mask [mbh, mbw] + i4_modes [mbh, mbw, 16]
     (I_4x4 lanes: levels in "ac", dc = 0); optional is_intra [mbh, mbw] +
     inter_planes (y, u, v) (mixed intra-in-P: non-intra MBs copy the inter
-    reconstruction and carry zero levels).
+    reconstruction and carry zero levels). `order`, optional, lists the MB
+    groups (xs, ys) in commit order; each MB's left, top and top-left
+    neighbours must lie in earlier groups. Default: the anti-diagonals.
     Returns (coeff dict of raster [N, ...] int32 tensors, recon planes)."""
     dev = y.device
     H, W = y.shape
@@ -221,8 +232,10 @@ def commit_ref(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
            "vac": torch.zeros((n, 4, 4, 4), **i32)}
     mixed = is_intra is not None
     with_i4 = i4_mask is not None
-    for d in range(n_diags(mbw, mbh)):
-        xs, ys = _diag_mbs(d, mbw, mbh, dev)
+    if order is None:
+        order = (_diag_mbs(d, mbw, mbh, dev)
+                 for d in range(n_diags(mbw, mbh)))
+    for xs, ys in order:
         al, at = xs > 0, ys > 0
         idx = ys * mbw + xs
         qp = qp_mb[ys, xs].to(torch.int32)
@@ -304,11 +317,14 @@ def build_library() -> str:
     os.makedirs(out_dir, exist_ok=True)
     tmp = lib + f".tmp{os.getpid()}"
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
+           "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+           _SRC]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError("nvcc failed building the commit kernel:\n"
                            + r.stdout + r.stderr)
+    with open(os.path.join(out_dir, "build.log"), "w") as f:
+        f.write(r.stdout + r.stderr)     # ptxas: registers, shared memory
     os.replace(tmp, lib)
     return lib
 
@@ -326,9 +342,18 @@ def _library():
     with _LIB_LOCK:
         if "lib" not in _LIB:
             lib = ctypes.CDLL(build_library())
+            args_p = ctypes.POINTER(_CommitArgs)
+            lib.x264t_commit_frame.restype = ctypes.c_int
+            lib.x264t_commit_frame.argtypes = [
+                args_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p]
+            lib.x264t_commit_capacity.restype = ctypes.c_int
+            lib.x264t_commit_capacity.argtypes = []
             lib.x264t_commit_diag.restype = ctypes.c_int
-            lib.x264t_commit_diag.argtypes = [
-                ctypes.POINTER(_CommitArgs), ctypes.c_int, ctypes.c_void_p]
+            lib.x264t_commit_diag.argtypes = [args_p, ctypes.c_int,
+                                              ctypes.c_void_p]
+            lib.x264t_empty_launch.restype = ctypes.c_int
+            lib.x264t_empty_launch.argtypes = [ctypes.c_void_p]
             lib.x264t_commit_args_size.restype = ctypes.c_int
             lib.x264t_commit_args_size.argtypes = []
             if lib.x264t_commit_args_size() != ctypes.sizeof(_CommitArgs):
@@ -336,6 +361,19 @@ def _library():
                                    "commit.cu and its binding")
             _LIB["lib"] = lib
         return _LIB["lib"]
+
+
+def grid_capacity(device) -> int:
+    """Blocks of the frame kernel that `device` holds at once."""
+    key = ("capacity", torch.device(device).index)
+    if key not in _LIB:
+        with torch.cuda.device(device):
+            n = _library().x264t_commit_capacity()
+        if n <= 0:
+            raise RuntimeError(f"commit kernel occupancy query failed: CUDA "
+                               f"error {-n}")
+        _LIB[key] = n
+    return _LIB[key]
 
 
 def _quant_tables(device):
@@ -360,12 +398,12 @@ def _check(t, name, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
-                is_intra=None, inter_planes=None, i4_mask=None,
-                i4_modes=None):
-    """The CUDA kernel (csrc/commit.cu), one launch per anti-diagonal on
-    the current stream. Inputs: uint8 planes, int32 maps, bool masks, all
-    contiguous on one CUDA device; outputs as commit_ref's."""
+def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+                 is_intra=None, inter_planes=None, i4_mask=None,
+                 i4_modes=None):
+    """Check the inputs, allocate the outputs and fill the CommitArgs
+    struct. Returns (args, out, recon, tab); keep `tab` alive until the
+    launches that read it are done."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"commit_cuda takes CUDA tensors, got {dev}")
@@ -389,6 +427,13 @@ def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         _check(inter_planes[0], "inter y", (H, W), u8, dev)
         _check(inter_planes[1], "inter u", (H // 2, W // 2), u8, dev)
         _check(inter_planes[2], "inter v", (H // 2, W // 2), u8, dev)
+    # the frame kernel copies tiles of these with cp.async (of a mask, the
+    # aligned 4-byte word holding an MB's byte: at most 3 bytes past the
+    # mask's end, inside its allocation, which PyTorch rounds up to 512)
+    for t in (y, u, v, i4_modes, i4_mask, is_intra, *(inter_planes or ())):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("planes, masks and i4_modes must be 16-byte "
+                             "aligned")
     n = mbw * mbh
     out = {"dc": torch.empty((n, 4, 4), dtype=i32, device=dev),
            "ac": torch.empty((n, 16, 4, 4), dtype=i32, device=dev),
@@ -410,21 +455,102 @@ def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         ptr(recon[0]), ptr(recon[1]), ptr(recon[2]), ptr(out["dc"]),
         ptr(out["ac"]), ptr(out["udc"]), ptr(out["uac"]), ptr(out["vdc"]),
         ptr(out["vac"]), mbw, mbh)
+    return args, out, recon, tab
+
+
+# per block, as commit_frame_kernel writes them (csrc/commit.cu kStats)
+STATS_FIELDS = ("wait_cycles", "i16_luma_cycles", "i4_luma_cycles",
+                "chroma_cycles", "poll_cycles", "mbs", "i4_mbs",
+                "run_cycles", "run_ns")
+
+
+def commit_launch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+                  is_intra=None, inter_planes=None, i4_mask=None,
+                  i4_modes=None, grid=None, stats=None):
+    """One launch of the frame kernel on the current stream, without
+    waiting for it. Returns (out, recon, prog): `prog` holds each row's
+    finished-MB count and, last, the error word; `check_progress(prog,
+    mbw)` reads it once the launch is done. `grid` caps the persistent
+    blocks (default min(mbh, what the card holds at once)). `stats`, zeros
+    of shape (grid, len(STATS_FIELDS)) int64 on the card, receives each
+    block's counters (STATS_FIELDS)."""
+    args, out, recon, _tab = _kernel_args(
+        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+        is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
+        i4_modes=i4_modes)
+    cap = min(mbh, grid_capacity(y.device))
+    grid = cap if grid is None else grid
+    if not 1 <= grid <= cap:
+        raise ValueError(f"grid {grid} outside 1..{cap}")
+    if stats is not None:
+        _check(stats, "stats", (grid, len(STATS_FIELDS)), torch.int64,
+               y.device)
+    prog = torch.zeros(mbh + 1, dtype=torch.int32, device=y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    rc = _library().x264t_commit_frame(
+        ctypes.byref(args), prog.data_ptr(), grid,
+        None if stats is None else stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"commit kernel launch failed: CUDA error {rc}")
+    commit.launches += 1
+    return out, recon, prog
+
+
+def check_progress(prog, mbw):
+    """Raise unless the launch that filled `prog` finished every MB row
+    (synchronises with it)."""
+    p = prog.cpu()
+    if int(p[-1]) != 0:
+        raise RuntimeError("commit kernel: a wavefront wait ran past its "
+                           "bound; the frame is incomplete")
+    if int(p[:-1].min()) != mbw:
+        raise RuntimeError("commit kernel: rows left unfinished")
+
+
+def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+                is_intra=None, inter_planes=None, i4_mask=None,
+                i4_modes=None, grid=None):
+    """The CUDA frame kernel (csrc/commit.cu commit_frame_kernel): one
+    launch per frame on the current stream, then a check that it finished.
+    Inputs: uint8 planes, int32 maps, bool masks, all contiguous and
+    16-byte aligned on one CUDA device; outputs as commit_ref's."""
+    out, recon, prog = commit_launch(
+        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+        is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
+        i4_modes=i4_modes, grid=grid)
+    check_progress(prog, mbw)
+    return out, recon
+
+
+def commit_cuda_diag(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw,
+                     mbh, is_intra=None, inter_planes=None, i4_mask=None,
+                     i4_modes=None):
+    """The first port's kernel (commit_diag_kernel), one launch per
+    anti-diagonal. Off the main path: kept so that a run on the card can
+    time it beside commit_cuda."""
+    args, out, recon, _tab = _kernel_args(
+        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+        is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
+        i4_modes=i4_modes)
     lib = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     for d in range(n_diags(mbw, mbh)):
         rc = lib.x264t_commit_diag(ctypes.byref(args), d, stream)
         if rc != 0:
             raise RuntimeError(f"commit kernel launch failed on diagonal {d}:"
                                f" CUDA error {rc}")
-        commit.launches += 1
+        commit_cuda_diag.launches += 1
     return out, recon
+
+
+commit_cuda_diag.launches = 0
 
 
 def commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
            is_intra=None, inter_planes=None, i4_mask=None, i4_modes=None):
     """Wavefront commit with the outputs of x264_tpu's commit_dispatch.
-    CUDA tensors go to the kernel, CPU tensors to commit_ref."""
+    CUDA tensors go to the frame kernel, CPU tensors to commit_ref.
+    `commit.launches` counts the frame kernel's launches."""
     fn = commit_cuda if y.is_cuda else commit_ref
     return fn(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
               is_intra=is_intra, inter_planes=inter_planes,

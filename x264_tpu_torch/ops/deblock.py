@@ -18,9 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from x264_tpu.ops import tables as T
-
 from ..device import const
+from . import tables as T
 from .commit import _diag_mbs, n_diags
 
 # spec tables 8-16 / 8-17 (qp 0..51), as in x264_tpu/ops/deblock.py (a JAX

@@ -2,16 +2,15 @@
 
 Deadzone forward quant, spec 8.5.10-8.5.12 dequant, flat CQM, int32.
 `qp` is a scalar or a tensor broadcastable against the batch dims.
-Tables come from x264_tpu.ops.tables.
+Tables come from ops/tables.py (the port's copy of x264_tpu's).
 """
 
 from __future__ import annotations
 
 import torch
 
-from x264_tpu.ops import tables
-
 from ..device import const
+from . import tables
 
 
 def _bc_qp(qp, batch_shape, device):
