@@ -11,24 +11,39 @@ Phases (any failure exits non-zero and prints no result line):
      0: every output is an integer), in the I16, I16+I4 and mixed
      variants, at 64x48, 48x32, 1920x1088 and a tall frame whose MB rows
      outnumber the blocks the card holds at once (so blocks loop over
-     rows), and at 1920x1088 with 7 blocks; hold the first port's
-     per-diagonal kernel against commit_ref too; time both kernels in
-     turns (old, new, new, old) and commit_ref; split the per-diagonal
-     kernel's time into launch cost and work; time the frame kernel's MB
-     step and row hand-off on one-row and one-column frames; read its
-     per-block counters (wait, luma, chroma, polling) at 1080p;
-  3. encode a 3-frame 64x48 all-intra clip on CUDA and on the CPU: the
-     streams must be byte-identical, and tools/refdec.py must decode the
-     CUDA stream to its reconstruction;
-  4. the main path: 8 frames of the bench's 1080p clip (bench.py
+     rows), and at 1920x1088 with 7 blocks; hold the mixed + I_4x4
+     variant against commit_ref on a real P frame (the arguments of the
+     commit that the encoder's dispatch of the 1080p clip's frame 1,
+     against frame 0's reconstruction, makes) and time it; hold the
+     first port's per-diagonal kernel
+     against commit_ref too; time both kernels in turns (old, new, new,
+     old) and commit_ref; split the per-diagonal kernel's time into
+     launch cost and work; time the frame kernel's MB step and row
+     hand-off on one-row and one-column frames; read its per-block
+     counters (wait, luma, chroma, polling) at 1080p;
+  3. encode a 3-frame 64x48 all-intra clip and a 5-frame 64x48 IPPP clip
+     (preset medium, CAVLC) on CUDA and on the CPU: the streams must be
+     byte-identical, and tools/refdec.py must decode each CUDA stream to
+     its reconstruction; then the same CUDA == CPU check on 4 IPPP frames
+     at 640x360;
+  4. the all-intra path: 4 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernel's launch count reset
      just before and read just after (one launch per encoded frame);
      frame 0 must match a CPU encode of the same frame byte for byte;
-  5. print fps, the kernels' and the plain version's time per frame, a
-     per-stage breakdown, the kernel line, the card's name and power
-     limit, and the result; fail if `jax` or any module of the `x264_tpu`
-     package entered the process.
+  5. the P main path (what bench.py times): 6 frames of the same clip,
+     IPPP at preset medium (2 references, weightp, partitions, subme 7,
+     I_4x4 and intra in P), CQP 26, CAVLC, through Encoder.encode on
+     CUDA, the launch count reset just before and read just after (one
+     mixed + I_4x4 launch per P frame, one per I frame);
+  6. print fps, the kernels' and the plain version's time per frame,
+     per-stage breakdowns of a 1080p I frame and of a 1080p P frame with
+     two references (the P path's own stage functions timed while
+     Encoder.encode runs the clip again; its stream must equal phase
+     5's), a P frame's device time per stage and device idle share
+     under torch.profiler, the kernel line, the card's name and power
+     limit, and the result; fail if `jax` or any module of the
+     `x264_tpu` package entered the process.
 """
 
 import json
@@ -38,7 +53,8 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_FRAMES = 8
+N_FRAMES = 4          # all-intra path
+N_P_FRAMES = 6        # IPPP main path: IDR + 5 P
 QP = 26
 
 
@@ -60,6 +76,34 @@ def intra_params(w, h, qp=QP):
     p.rc.rc_method = 0
     p.rc.qp_constant = qp
     return p
+
+
+def ippp_params(w, h, qp=QP):
+    """bench.py's timed configuration: preset medium with no B frames
+    (IPPP, 2 references, weightp, partitions, subme 7), the default keyint,
+    CQP, CAVLC."""
+    p = intra_params(w, h, qp)
+    p.keyint_max = 250
+    p.bframe = 0
+    return p
+
+
+def moving_frames(n, w, h, seed=0):
+    """A panning, noisy clip (tests/test_inter_e2e.py's moving_frames)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for i in range(n):
+        y = np.clip(128 + 60 * np.sin((xx + 3 * i) / 17)
+                    * np.cos((yy + 2 * i) / 13)
+                    + rng.integers(-4, 4, (h, w)), 0, 255).astype(np.uint8)
+        u = np.clip(128 + 40 * np.sin((xx[::2, ::2] + 3 * i) / 19), 0,
+                    255).astype(np.uint8)
+        v = np.clip(128 + 40 * np.cos((yy[::2, ::2] - 2 * i) / 23), 0,
+                    255).astype(np.uint8)
+        out.append([y, u, v])
+    return out
 
 
 def encode_stream(enc, frames, picture):
@@ -192,22 +236,30 @@ OPS_PER_I4_PIXEL = 6         # I_4x4 edge vectors and their 3-/2-tap filters
 
 def commit_bound(args, kw, got):
     """Least time the card could take for one commit on these inputs: the
-    larger of the bytes it must move (inputs read once, outputs written
-    once) over the memory rate and the integer ops these MBs need over
-    the ALU rate. Returns (bound_ms, bound_by, bytes, ops)."""
-    import torch
-    tensors = [a for a in args if isinstance(a, torch.Tensor)]
-    tensors += [t for v in kw.values()
-                for t in (v if isinstance(v, (list, tuple)) else [v])]
-    tensors += list(got[0].values()) + list(got[1])
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    nbytes += 208 * 4 + (args[8] + 1) * 4          # quant tables, progress
-    intra = kw.get("is_intra")
+    larger of the bytes it must move and the integer ops these MBs need,
+    over the memory and ALU rates. Bytes: each output written once, and
+    of the inputs only what this frame's MBs read: an intra MB its 384
+    source bytes, modes, QPs and I_4x4 flag (its 16 I_4x4 modes only if
+    it is I_4x4), an inter MB its 384 bytes of inter reconstruction;
+    plus the intra mask, quant tables and progress words.
+    Returns (bound_ms, bound_by, bytes, ops)."""
+    maps = args[3:7]                # i16, chroma modes, qp, qpc per MB
     n = args[7] * args[8]
+    intra = kw.get("is_intra")
     n_intra = n if intra is None else int(intra.sum())
     i4 = kw.get("i4_mask")
     n_i4 = 0 if i4 is None else int((i4 if intra is None else i4 & intra)
                                     .sum())
+    per_intra = 384 + sum(m.element_size() for m in maps)
+    nbytes = n_intra * per_intra + (n - n_intra) * 384
+    if i4 is not None:
+        nbytes += (n_intra * i4.element_size()
+                   + n_i4 * 16 * kw["i4_modes"].element_size())
+    if intra is not None:
+        nbytes += n * intra.element_size()
+    nbytes += sum(t.numel() * t.element_size()
+                  for t in list(got[0].values()) + list(got[1]))
+    nbytes += 208 * 4 + (args[8] + 1) * 4          # quant tables, progress
     ops = OPS_PER_PIXEL * 384 * n_intra + OPS_PER_I4_PIXEL * 256 * n_i4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -327,7 +379,8 @@ def main():
              "card")
     sys.path.insert(0, ROOT)
     from bench import synth_clip
-    from x264_tpu_torch.encoder.encoder import TYPE_IDR, Encoder, Picture
+    from x264_tpu_torch.encoder.encoder import (TYPE_IDR, TYPE_P, Encoder,
+                                                Picture)
     from x264_tpu_torch.ops import commit as C
 
     dev = torch.device("cuda")
@@ -351,7 +404,7 @@ def main():
                     log("phase 1 ptxas: " + line.strip())
 
     # ---- phase 2: kernels vs plain version on the card ----
-    clip = synth_clip(N_FRAMES)
+    clip = synth_clip(N_P_FRAMES)
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
     rng = np.random.default_rng(5)
@@ -397,6 +450,42 @@ def main():
                          f"{variant})")
             if label == "1920x1088" and variant == "i16+i4":
                 timing_args = (args, kw, ref)
+
+    # the mixed + I_4x4 variant on a real P frame: the arguments of the
+    # commit that the encoder's own dispatch of frame 1 (against frame
+    # 0's reconstruction) makes
+    enc_p = Encoder(ippp_params(1920, 1080), device=dev)
+    enqueue(enc_p, clip[0], TYPE_IDR, 0)
+    margs, mkw = captured_commit(enc_p, clip[1], 1)
+    del enc_p
+    mref = C.commit_ref(*margs, **mkw)
+    merr = max_abs_err(mref, C.commit_cuda(*margs, **mkw))
+    worst = max(worst, merr)
+    n_mb = margs[7] * margs[8]
+    n_intra = int(mkw["is_intra"].sum())
+    n_i4 = int((mkw["is_intra"] & mkw["i4_mask"]).sum())
+    log(f"phase 2 frame kernel vs commit_ref 1920x1088 mixed+i4 on P frame "
+        f"1: max_abs_err {merr} (tolerance 0), intra MBs {n_intra} of "
+        f"{n_mb}, I4 MBs {n_i4}")
+    if merr != 0:
+        fail("frame kernel disagrees with commit_ref on a real P frame")
+    mprogs = []
+
+    def run_mixed():
+        mprogs.append(C.commit_launch(*margs, **mkw)[2])
+
+    cuda_ms(torch, run_mixed, 3)                       # warm-up
+    mixed_runs = [cuda_ms(torch, run_mixed, 20) for _ in range(2)]
+    for prog in mprogs:
+        C.check_progress(prog, margs[7])
+    mixed_ms = sum(mixed_runs) / len(mixed_runs)
+    mixed_plain_ms = cuda_ms(torch, lambda: C.commit_ref(*margs, **mkw), 1)
+    m_bound_ms, m_bound_by, m_bytes, m_ops = commit_bound(margs, mkw, mref)
+    log(f"phase 2 mixed+i4 commit per 1080p P frame (CUDA events, 20 runs "
+        f"each): {mixed_runs[0]:.4f} / {mixed_runs[1]:.4f} ms; commit_ref "
+        f"{mixed_plain_ms:.1f} ms; bound {m_bound_ms * 1e3:.3f} us by "
+        f"{m_bound_by} ({m_bytes} bytes, {m_ops} integer ops)")
+
     args, kw, ref = timing_args
     bound_ms, bound_by, nbytes, ops = commit_bound(args, kw, ref)
 
@@ -462,20 +551,54 @@ def main():
         fail("refdec does not decode the CUDA stream to its recon")
     log(f"phase 3 64x48 x3: CUDA stream == CPU stream ({len(s_gpu)} bytes);"
         " refdec decodes it to the CUDA reconstruction")
+    pp = ippp_params(64, 48)
+    pp.full_recon = True
+    mov = moving_frames(5, 64, 48)
+    enc_g = Encoder(pp, device=dev)
+    s_gpu, o_gpu = encode_stream(enc_g, mov, Picture)
+    s_cpu, _ = encode_stream(Encoder(pp, device="cpu"), mov, Picture)
+    if [o.i_type for o in o_gpu] != [TYPE_IDR] + [TYPE_P] * 4:
+        fail(f"64x48 IPPP frame types {[o.i_type for o in o_gpu]}")
+    if s_gpu != s_cpu:
+        fail("64x48 IPPP CUDA and CPU streams differ")
+    decoded = refdec_decode(s_gpu, 64, 48)
+    if len(decoded) != 5 or not all(
+            np.array_equal(d[c], o.recon[c])
+            for d, o in zip(decoded, o_gpu) for c in range(3)):
+        fail("refdec does not decode the CUDA IPPP stream to its recon")
+    log(f"phase 3 64x48 IPPP x5: CUDA stream == CPU stream ({len(s_gpu)} "
+        f"bytes, P MBs {enc_g.stats['mb']['P']}, weightp frames "
+        f"{enc_g.stats.get('weightp_frames', 0)}); refdec decodes it to "
+        f"the CUDA reconstruction")
+    mid = synth_clip(4, w=640, h=360)
+    t0 = time.time()
+    s_gpu, o_gpu = encode_stream(Encoder(ippp_params(640, 360), device=dev),
+                                 mid, Picture)
+    t_gpu = time.time() - t0
+    t0 = time.time()
+    s_cpu, _ = encode_stream(Encoder(ippp_params(640, 360), device="cpu"),
+                             mid, Picture)
+    t_cpu = time.time() - t0
+    if [o.i_type for o in o_gpu] != [TYPE_IDR] + [TYPE_P] * 3:
+        fail(f"640x360 IPPP frame types {[o.i_type for o in o_gpu]}")
+    if s_gpu != s_cpu:
+        fail("640x360 IPPP CUDA and CPU streams differ")
+    log(f"phase 3 640x360 IPPP x4: CUDA stream == CPU stream ({len(s_gpu)} "
+        f"bytes; CUDA {t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
 
-    # ---- phase 4: the main path, 8 x 1080p through Encoder.encode ----
+    # ---- phase 4: the all-intra path, 4 x 1080p through Encoder.encode --
     p4 = intra_params(1920, 1080)
     p4.analyse.psnr = True
     enc = Encoder(p4, device=dev)
     torch.cuda.synchronize()
     C.commit.launches = 0
     t0 = time.time()
-    stream, outs = encode_stream(enc, clip, Picture)
+    stream, outs = encode_stream(enc, clip[:N_FRAMES], Picture)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = C.commit.launches
     retries = sum((o.qp - qp_i) // 4 for o in outs)
-    log(f"phase 4 main path: {len(outs)} frames, {len(stream)} bytes, "
+    log(f"phase 4 all-intra path: {len(outs)} frames, {len(stream)} bytes, "
         f"QPs {[o.qp for o in outs]}, commit launches {launches} "
         f"(= {N_FRAMES} frames + {retries} re-encodes)")
     if len(outs) != N_FRAMES:
@@ -500,14 +623,63 @@ def main():
     log(f"phase 4 1080p frame 0: CUDA stream == CPU stream "
         f"({len(s_gpu1)} bytes)")
 
-    # ---- phase 5: report ----
+    # ---- phase 5: the P main path, IDR + 5 P at 1080p ----
+    p5 = ippp_params(1920, 1080)
+    p5.analyse.psnr = True
+    enc5 = Encoder(p5, device=dev)
+    qp_p = Encoder(p5, device=dev).rc.start(TYPE_P, -1, frame_idx=1)
+    torch.cuda.synchronize()
+    C.commit.launches = 0
+    t0 = time.time()
+    stream5, outs5 = encode_stream(enc5, clip[:N_P_FRAMES], Picture)
+    torch.cuda.synchronize()
+    wall5 = time.time() - t0
+    launches_p = C.commit.launches
+    types = [o.i_type for o in outs5]
+    nominal = {TYPE_IDR: qp_i, TYPE_P: qp_p}
+    retries5 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs5)
+    log(f"phase 5 P main path: {len(outs5)} frames, types {types}, "
+        f"{len(stream5)} bytes, bytes by type "
+        f"{enc5.stats['bytes_by_type']}, QPs {[o.qp for o in outs5]}, "
+        f"commit launches {launches_p} (= {N_P_FRAMES} frames + "
+        f"{retries5} re-encodes), P MBs {enc5.stats['mb']['P']}, weightp "
+        f"frames {enc5.stats.get('weightp_frames', 0)}")
+    if types != [TYPE_IDR] + [TYPE_P] * (N_P_FRAMES - 1):
+        fail(f"frame types {types}, expected IDR then {N_P_FRAMES - 1} P")
+    if launches_p != N_P_FRAMES + retries5:
+        fail(f"commit launches {launches_p} != {N_P_FRAMES} + {retries5}")
+    for o in outs5:
+        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
+        if shapes != [(1080, 1920), (540, 960), (540, 960)]:
+            fail(f"recon shapes {shapes}")
+        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
+            fail(f"PSNR {o.psnr} (expected finite and > 30 dB)")
+    log("phase 5 PSNR Y/U/V per frame: "
+        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
+                   for o in outs5))
+
+    # ---- phase 6: report ----
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
                              qp_i)
+    p_stages, prof, stream6 = p_stage_breakdown(torch, p5, clip, dev)
+    if stream6 != stream5:
+        fail("the timed IPPP encode's stream differs from phase 5's")
     fps = N_FRAMES / wall
-    log(f"phase 5 fps (8 x 1080p all-intra, Encoder.encode, host clock, "
-        f"first frame included): {fps:.4f} ({wall:.3f} s)")
-    log("phase 5 stages ms per 1080p frame (host clock, synchronised): "
+    fps5 = N_P_FRAMES / wall5
+    log(f"phase 6 fps ({N_FRAMES} x 1080p all-intra, Encoder.encode, host "
+        f"clock, first frame included): {fps:.4f} ({wall:.3f} s)")
+    log(f"phase 6 fps ({N_P_FRAMES} x 1080p IPPP, Encoder.encode, host "
+        f"clock, first frame included): {fps5:.4f} ({wall5:.3f} s)")
+    log("phase 6 stages ms per 1080p I frame (host clock, synchronised): "
         + json.dumps(stages))
+    log("phase 6 stages ms per 1080p P frame, two references (host clock, "
+        "synchronised; the Encoder.encode calls that dispatch P frames 2-4 "
+        "and finalize 1-3; its stream == phase 5's): "
+        + json.dumps(p_stages))
+    log("phase 6 1080p P frame under torch.profiler (the encode call that "
+        "dispatches P frame 5 and finalizes 4): " + (
+        json.dumps(prof) if prof else "the profiler saw no device time "
+        "(device idle share not measured)"))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -516,9 +688,13 @@ def main():
         "name": "commit_frame_kernel", "route": "cuda",
         "source": "x264_tpu_torch/csrc/commit.cu",
         "replaces": "x264_tpu/ops/pallas/commit.py:672",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches_p, "max_abs_err": worst,
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "earlier_ms": e_ms}]}))
+        "bound_by": bound_by, "library_ms": None, "earlier_ms": e_ms,
+        "launches_all_intra_path": launches,
+        "mixed_p_frame_ms": mixed_ms, "mixed_p_frame_plain_ms":
+        mixed_plain_ms, "mixed_p_frame_bound_ms": m_bound_ms,
+        "mixed_p_frame_bound_by": m_bound_by}]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
@@ -573,6 +749,198 @@ def stage_breakdown(torch, enc, planes, qp):
         timed("payload_to_host", lambda: words[:(int(bits) + 31) // 32]
               .cpu().numpy())
     return {k: round(sum(v[1:]) / len(v[1:]), 3) for k, v in acc.items()}
+
+
+def enqueue(enc, frame, ftype, idx):
+    """Dispatch one frame of `enc` as Encoder.encode would once the
+    lookahead decided it (QP, DPB push, source luma kept for weightp)."""
+    from x264_tpu_torch.encoder.encoder import Picture
+    enc._enqueue_frame(enc._pad_to_mb(frame), ftype, Picture(frame, pts=idx),
+                       idx)
+    enc._pipe.clear()
+
+
+def captured_commit(enc, frame, idx):
+    """Dispatch `frame` as P frame `idx` of `enc` (the encoder's own
+    dispatch, as enqueue) and return the (args, kwargs) of the commit
+    that its P pipeline called."""
+    from x264_tpu_torch.encoder import inter
+    from x264_tpu_torch.encoder.encoder import TYPE_P
+    real, calls = inter.commit, []
+
+    def keep(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    inter.commit = keep
+    try:
+        enqueue(enc, frame, TYPE_P, idx)
+    finally:
+        inter.commit = real
+    if len(calls) != 1:
+        fail(f"P frame {idx} made {len(calls)} commit calls, expected 1")
+    return calls[0]
+
+
+class StageTimer:
+    """Times the stages of the P path while Encoder.encode runs it. Each
+    stage function below is a module attribute that the pipeline looks
+    up when it calls it (and the encoder's DPB push a method of `enc`):
+    inside the `with` block each is wrapped so that every call is
+    synchronised before and after, and its host-clock time less that of
+    the stages it calls (the commit inside the merge) goes to its stage.
+    With `ranges`, every call also runs in a torch.profiler range
+    "stage:<name>"."""
+
+    HOOKS = (("lookahead", "_search_pair", "lookahead_search"),
+             ("inter", "p_fullpel_core", "fullpel"),
+             ("inter", "p_subpel_core", "subpel"),
+             ("inter", "p_me_select", "subpel"),
+             ("inter", "p_intra_core", "intra"),
+             ("inter", "p_rd_core", "rd"),
+             ("inter", "p_xfrm_core", "xfrm"),
+             ("inter", "commit", "commit_kernel"),
+             ("inter", "p_merge_core", "merge_cbp_skip"),
+             ("inter", "encode_pframe_entropy_dev", "cavlc"),
+             ("inter", "p_deblock_core", "deblock"),
+             ("inter", "finalize_slice", "finalize_slice"))
+
+    def __init__(self, torch, enc, ranges=False):
+        from x264_tpu_torch.encoder import inter, lookahead
+        mods = {"inter": inter, "lookahead": lookahead}
+        self.torch, self.ranges = torch, ranges
+        self.ms, self.calls, self._inner = {}, {}, []
+        self._hooks = [(mods[m], attr, stage) for m, attr, stage in self.HOOKS]
+        self._hooks.append((enc, "_dpb_push_entry", "dpb_push"))
+
+    def _wrap(self, fn, stage):
+        import contextlib
+        from torch.profiler import record_function
+        sync = self.torch.cuda.synchronize
+
+        def timed(*args, **kw):
+            sync()
+            self._inner.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                with (record_function("stage:" + stage) if self.ranges
+                      else contextlib.nullcontext()):
+                    out = fn(*args, **kw)
+                    sync()
+            finally:
+                inner = self._inner.pop()
+            dt = (time.perf_counter() - t0) * 1e3
+            self.ms[stage] = self.ms.get(stage, 0.0) + dt - inner
+            self.calls[stage] = self.calls.get(stage, 0) + 1
+            if self._inner:
+                self._inner[-1] += dt
+            return out
+        return timed
+
+    def __enter__(self):
+        # an attribute not in the object's own dict (the encoder's
+        # method) is deleted again on exit, the others are put back
+        self._saved = [(obj, attr, vars(obj).get(attr))
+                       for obj, attr, _ in self._hooks]
+        for obj, attr, stage in self._hooks:
+            setattr(obj, attr, self._wrap(getattr(obj, attr), stage))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self._saved:
+            if fn is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+        return False
+
+
+P_TIMED = (3, 4, 5)     # encode calls of clip frames 3-5: P 2-4 dispatched
+
+
+def p_stage_breakdown(torch, params, clip, dev):
+    """Stages of the P path as Encoder.encode runs them, per P frame with
+    two references: a fresh encoder takes the IPPP clip; the calls that
+    take frames 3, 4 and 5 (each dispatches the P frame before it, which
+    searches two references, and finalizes the one before that) run
+    under a StageTimer; the first flush call (P frame 5 dispatched, 4
+    finalized) runs under torch.profiler (p_device_profile). Returns
+    (ms per frame by stage, the profile, the whole stream)."""
+    from x264_tpu_torch.encoder.encoder import Encoder, Picture, annexb_bytes
+    enc = Encoder(params, device=dev)
+    stream = annexb_bytes(enc.headers())
+    timer = StageTimer(torch, enc)
+    wall = 0.0
+    for i, frame in enumerate(clip):
+        if i in P_TIMED:
+            with timer:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nals, _ = enc.encode(Picture(frame, pts=i))
+                torch.cuda.synchronize()
+                wall += (time.perf_counter() - t0) * 1e3
+        else:
+            nals, _ = enc.encode(Picture(frame, pts=i))
+        stream += annexb_bytes(nals)
+    prof, nals = p_device_profile(torch, enc)
+    stream += annexb_bytes(nals)
+    while True:
+        nals, out = enc.encode(None)
+        stream += annexb_bytes(nals)
+        if out is None:
+            break
+    runs = len(P_TIMED)
+    stages = {k: round(v / runs, 3) for k, v in timer.ms.items()}
+    stages["unstaged"] = round((wall - sum(timer.ms.values())) / runs, 3)
+    stages["encode_call"] = round(wall / runs, 3)
+    stages["calls"] = timer.calls
+    return stages, prof, stream
+
+
+def p_device_profile(torch, enc):
+    """One encode(None) call of `enc` (it dispatches the last P frame and
+    finalizes the one before: one frame's work) under torch.profiler,
+    each stage in its range and synchronised as StageTimer does: per
+    stage the card's time and operation count (kernels, copies and sets
+    whose start lies in the stage's innermost range) and the host-clock
+    time, and the device idle share (1 - the card's busy time over the
+    call's host-clock time). Returns (that, or None when the profiler
+    saw no operation on the card; the call's NALs)."""
+    from torch.profiler import ProfilerActivity, profile
+    timer = StageTimer(torch, enc, ranges=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, timer:
+        t0 = time.perf_counter()
+        nals, _ = enc.encode(None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ops = [e for e in events if e.device_type == cuda
+           and not e.name.startswith("stage:")]
+    windows = [(e.name[len("stage:"):], e.time_range.start, e.time_range.end)
+               for e in events if e.device_type != cuda
+               and e.name.startswith("stage:")]
+    if not ops:
+        return None, nals
+    stages, counts = {}, {}
+    for e in ops:
+        hits = [w for w in windows
+                if w[1] <= e.time_range.start <= w[2]]
+        key = max(hits, key=lambda w: w[1])[0] if hits else "unstaged"
+        stages[key] = stages.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        counts[key] = counts.get(key, 0) + 1
+    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return {"frame_host_ms": round(wall_ms, 3),
+            "device_busy_ms": round(busy_ms, 3),
+            "device_idle_share": round(1 - busy_ms / wall_ms, 4),
+            "device_ops": len(ops),
+            "stage_device_ms": {k: round(v, 3) for k, v in stages.items()},
+            "stage_device_ops": counts,
+            "stage_host_ms": {k: round(v, 3)
+                              for k, v in timer.ms.items()}}, nals
 
 
 if __name__ == "__main__":

@@ -170,14 +170,21 @@ def test_lowres_and_intra_blocks_match_x264_tpu():
 
 
 def test_inter_frames_raise_not_implemented():
-    p = intra_params(64, 48, 26)
-    p.keyint_max = 250
-    p.bframe = 0
-    enc = Encoder(p, device="cpu")
+    """IPPP at the bench's settings is ported (tests/test_torch_pframe.py);
+    B frames and the exhaustive motion search are not, and raise naming
+    their ROADMAP item."""
     frames = synth_frames(3, 64, 48)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        for i, f in enumerate(frames):
-            enc.encode(Picture(f, pts=i))
+    for what, value in (("bframe", 2), ("me_method", 3)):
+        p = intra_params(64, 48, 26)
+        p.keyint_max = 250
+        p.bframe = 0
+        if what == "bframe":
+            p.bframe = value
+            p.bframe_adaptive = 0      # B_ADAPT_NONE: B frames, always
+        else:
+            p.analyse.me_method = value
+        with pytest.raises(NotImplementedError, match="ROADMAP item"):
+            encode_all(Encoder(p, device="cpu"), frames)
 
 
 def test_import_leaves_jax_out():

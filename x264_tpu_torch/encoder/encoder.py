@@ -6,8 +6,8 @@ Public API as in x264_tpu: Encoder(params, device=...), .headers(),
 types, `Picture`, `PicOut`, `EncoderError` and `validate_parameters` are
 copied from x264_tpu's module unchanged; parameters, SPS/PPS/SEI writers
 and rate control are the port's own copies of x264_tpu's host modules.
-What is ported so far encodes I / IDR frames (CAVLC); other frame types
-raise NotImplementedError naming their ROADMAP item.
+What is ported so far encodes I / IDR and P frames (CAVLC); other frame
+types and options raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -69,6 +69,14 @@ class PicOut:
 
 class EncoderError(Exception):
     pass
+
+
+class Planes(list):
+    """A frame's [y, u, v] tensors on the encoder's device, padded to whole
+    MBs, with the padded source luma kept on the host as numpy
+    (`host_luma`): the weightp fit reads it without a copy back from the
+    device."""
+    host_luma = None
 
 
 def validate_parameters(p: P.Params) -> P.Params:
@@ -198,6 +206,8 @@ class Encoder:
         self._coding_out = 0
         self._closed = False
         self._pending_ref_fields = None
+        self._last_ref_fn = None
+        self._src_luma: dict = {}   # DPB tag -> source luma (host numpy)
         self.stats = {"frames": 0, "bytes": 0,
                       "count": {"I": 0, "P": 0, "B": 0},
                       "qp_sum": {"I": 0.0, "P": 0.0, "B": 0.0},
@@ -297,17 +307,26 @@ class Encoder:
             self.frame_num = 0
             self._idr_display_base = idx
             self._dpb.clear()
+            self._last_ref_fn = None    # the decoder's DPB resets at IDR
         self.poc = 2 * (idx - self._idr_display_base)
         qp = self._decide_qp(ftype, pic, idx)
         pre_state = (self.frame_num, self.poc)
         finalize, retry, recon_dev, ref_fwd = frame_encode.dispatch_frame(
             self, planes, ftype, qp, tree_off=tree_off)
+        # this frame is now the decoder's most recent reference, the
+        # default list0[0] of the next frame (apply_ref_list_mod)
+        self._last_ref_fn = self.frame_num
         # reference pictures advance frame_num (spec 7.4.3)
         self.frame_num = (self.frame_num + 1) % (
             1 << self.sps.log2_max_frame_num)
         tag = idx
         if recon_dev is not None:
+            # the next frame's weightp fit reads this frame's source luma
+            self._src_luma[tag] = planes.host_luma
             self._dpb_push(recon_dev, tag)
+            live = {r["tag"] for r in self._dpb}
+            for k in [k for k in self._src_luma if k not in live]:
+                del self._src_luma[k]
         if is_idr:
             self.idr_pic_id = (self.idr_pic_id + 1) % 65536
         dts = self._coding_out - (1 if self.p.bframe > 0 else 0)
@@ -407,10 +426,10 @@ class Encoder:
             vals.append(10 * np.log10(peak * peak / max(mse, 1e-12)))
         return tuple(vals)
 
-    def _pad_to_mb(self, planes: list) -> list:
+    def _pad_to_mb(self, planes: list) -> Planes:
         """Pad planes to MB-aligned sizes by edge replication and move them
-        to the encoder's device."""
-        out = []
+        to the encoder's device; the padded luma stays on the host too."""
+        out = Planes()
         for i, pl in enumerate(planes):
             if i == 0:
                 th, tw = self.mb_h * 16, self.mb_w * 16
@@ -422,6 +441,8 @@ class Encoder:
             ph, pw = th - pl.shape[0], tw - pl.shape[1]
             if ph or pw:
                 pl = np.pad(pl, ((0, ph), (0, pw)), mode="edge")
+            if i == 0:
+                out.host_luma = pl
             out.append(torch.from_numpy(np.ascontiguousarray(pl))
                        .to(self.device))
         return out

@@ -1,5 +1,5 @@
-"""Per-frame dispatch (x264_tpu/encoder/frame_encode.py): I and IDR frames
-only so far."""
+"""Per-frame dispatch (x264_tpu/encoder/frame_encode.py): I, IDR and P
+frames (CAVLC)."""
 
 from __future__ import annotations
 
@@ -22,8 +22,9 @@ def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
         return intra.dispatch_iframe(enc, planes, ftype, qp,
                                      tree_off=tree_off)
     if ftype == TYPE_P:
-        raise NotImplementedError("P frames are not ported yet "
-                                  "(ROADMAP item 6)")
+        from . import inter
+        return inter.dispatch_pframe(enc, planes, ftype, qp, ref_tag,
+                                     tree_off=tree_off, pir=pir)
     raise NotImplementedError("B frames are not ported yet "
                               "(ROADMAP item 11)")
 

@@ -1,18 +1,19 @@
 """Lookahead: frame window + lowres slicetype analysis
 (x264_tpu/encoder/lookahead.py).
 
-Ported so far: the lowres intake (`lowres_plane`, `intra_blocks`) and the
-`Lookahead` window logic, which is host code. The inter-frame cost search
-(`_search_pair`, ROADMAP item 5) and MB-tree (ROADMAP item 10) are not
-ported yet; a decision that needs them raises NotImplementedError. An
-all-intra encode (keyint 1) needs neither: every frame is due an IDR and
-scene-cut detection is off.
+Ported: the lowres intake (`lowres_plane`, `intra_blocks`), the P-frame
+cost search (`_search_pair`, which IPPP scene-cut detection runs on every
+frame) and the `Lookahead` window logic, which is host code. The B-frame
+costs (`_bidir_cost`, ROADMAP item 11) and MB-tree (ROADMAP item 10) are
+not ported yet; a decision that needs them raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..device import const
 from ..ops.mc import _clamped
 from .encoder import (TYPE_AUTO, TYPE_B, TYPE_BREF, TYPE_I, TYPE_IDR,
                       TYPE_KEYFRAME, TYPE_P)
@@ -34,6 +35,48 @@ def lowres_plane(y):
 
     return hfilt(v0, 0), torch.stack([hfilt(v0, 1), hfilt(v1, 0),
                                       hfilt(v1, 1)])
+
+
+def _search_pair(low_cur, low_ref, ref_phases=None, *, srange: int = 8):
+    """Dense +-srange full-pel search of cur against ref on lowres, offsets
+    in raster order, a later offset winning only on a strictly lower SAD;
+    with ref_phases, the 3 half-pel phase planes sampled at the winner
+    lower the cost (the MV stays full-pel).
+    Returns (sad_blk [bh, bw], mv [bh, bw, 2]) per 8x8 block."""
+    H, W = low_cur.shape
+    bh, bw = H // 8, W // 8
+    dev = low_cur.device
+    cur = low_cur.to(torch.int32)
+    ref_pad = _clamped(low_ref, srange, srange, srange, srange) \
+        .to(torch.int32)
+    best = torch.full((bh, bw), 1 << 30, dtype=torch.int32, device=dev)
+    mv = torch.zeros((bh, bw, 2), dtype=torch.int32, device=dev)
+    offs = [(dx, dy) for dy in range(-srange, srange + 1)
+            for dx in range(-srange, srange + 1)]
+    off_t = const(np.asarray(offs, np.int32), dev)
+    for k, (dx, dy) in enumerate(offs):
+        shifted = ref_pad[srange + dy:srange + dy + H,
+                          srange + dx:srange + dx + W]
+        sad = (shifted - cur).abs().reshape(bh, 8, bw, 8).sum(
+            (1, 3), dtype=torch.int32)
+        better = sad < best
+        best = torch.where(better, sad, best)
+        mv = torch.where(better[..., None], off_t[k], mv)
+    if ref_phases is not None:
+        pad = srange + 1
+        cur_t = cur.reshape(bh, 8, bw, 8).transpose(1, 2)
+        rows = (torch.arange(bh, device=dev)[:, None, None, None] * 8 + pad
+                + torch.arange(8, device=dev)[None, None, :, None]
+                + mv[:, :, 1][:, :, None, None]).long()
+        cols = (torch.arange(bw, device=dev)[None, :, None, None] * 8 + pad
+                + torch.arange(8, device=dev)[None, None, None, :]
+                + mv[:, :, 0][:, :, None, None]).long()
+        for k in range(3):
+            ph = _clamped(ref_phases[k], pad, pad, pad, pad) \
+                .to(torch.int32)[rows, cols]
+            psad = (ph - cur_t).abs().sum((2, 3), dtype=torch.int32)
+            best = torch.minimum(best, psad)
+    return best, mv
 
 
 def intra_blocks(low_cur):
@@ -96,17 +139,26 @@ class Lookahead:
 
     def _fields(self, p0, p1, b):
         """Memoized per-block cost fields for coding frame b with anchors
-        p0 / p1; only intra costs (p0 == b) are available in the port."""
+        p0 (fwd) / p1 (bwd); b == p1 means P, p0 == b intra."""
         key = (p0, p1, b)
         if key in self._costs:
             return self._costs[key]
-        if p0 != b:
+        eb = self._entry(b)
+        ic = eb["icost_blk"]
+        if p0 == b:
+            out = {"cost": int(ic.sum()), "cost_blk": ic, "mv": None,
+                   "intra_blk": ic}
+        elif b != p1:
             raise NotImplementedError(
-                "inter lowres costs need _search_pair, not ported yet "
-                "(ROADMAP item 5)")
-        ic = self._entry(b)["icost_blk"]
-        out = {"cost": int(ic.sum()), "cost_blk": ic, "mv": None,
-               "intra_blk": ic}
+                "B-frame lowres costs (_bidir_cost) are not ported yet "
+                "(ROADMAP item 11)")
+        else:
+            e0 = self._entry(p0)
+            sad0, mv0 = _search_pair(eb["lowres"], e0["lowres"],
+                                     e0.get("lowres_ph"))
+            blk = torch.minimum(sad0, ic)
+            out = {"cost": int(blk.sum()), "cost_blk": blk, "mv": mv0,
+                   "intra_blk": ic}
         self._costs[key] = out
         return out
 

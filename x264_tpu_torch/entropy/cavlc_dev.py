@@ -221,7 +221,8 @@ def pack_mb_stream(codes, lens, mb_cap_words: int, cap_words: int,
         keep = w < Wm
         acc.index_add_(0, (rows + w)[keep], val[keep])
     acc = (acc & _M32).reshape(M, Wm)
-    mb_over = (mb_bits > mb_cap_words * 32).any() | bool(force_over)
+    mb_over = ((mb_bits > mb_cap_words * 32).any()
+               | torch.as_tensor(force_over, device=dev))
 
     # phase B
     mb_end = torch.cumsum(mb_bits.to(_i64), 0)
@@ -414,6 +415,208 @@ def _i4_mode_codes_dev(is_i4, i4_modes, mbh, mbw):
         .to(torch.int32)
     zorder = const(LUMA4x4_RASTER, dev, _i64)
     return m_codes[:, zorder], m_lens[:, zorder]
+
+
+def _carried_qp(has, qp_flat, slice_qp):
+    """(prev_qp, eff_qp) [N]: the QP the decoder carries into each MB (the
+    last MB with `has` before it, else the slice QP) and after it."""
+    n = qp_flat.shape[0]
+    idxs = torch.arange(n, dtype=torch.int32, device=qp_flat.device)
+    last = torch.cummax(torch.where(has, idxs, -1), 0).values
+    prev = torch.cat([torch.full((1,), -1, dtype=torch.int32,
+                                 device=qp_flat.device), last[:-1]])
+    prev_qp = torch.where(prev >= 0, qp_flat[prev.clamp(min=0).long()],
+                          torch.as_tensor(slice_qp, dtype=torch.int32,
+                                          device=qp_flat.device))
+    return prev_qp, torch.where(has, qp_flat, prev_qp)
+
+
+def _pframe_mb_codes(skip, mvd, cbp_luma, cbp_chroma, qp_flat, slice_qp,
+                     luma_lv, cdc_blk, cac_blk, *, mbw: int, mbh: int,
+                     is_intra=None, i16_mode=None, chroma_mode=None,
+                     luma_dc=None, part_mode=None, mvd2=None, mvd23=None,
+                     is_i4=None, i4_modes=None, refidx=None,
+                     two_refs: bool = False, two_refs_live=None):
+    """P-slice MB-layer element table (x264_tpu cavlc_jax._pframe_mb_codes):
+    (codes [N, S] int64, lens [N, S], eff_qp [N], lvl_over, trailing)."""
+    n = mbw * mbh
+    dev = skip.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    if part_mode is None:
+        part_mode = torch.zeros((n,), **i32)
+        mvd2 = torch.zeros((n, 2), **i32)
+    if mvd23 is None:
+        mvd23 = torch.zeros((n, 2, 2), **i32)
+    if is_i4 is None:
+        is_i4 = torch.zeros((n,), dtype=torch.bool, device=dev)
+        i4_modes = torch.zeros((n, 16), **i32)
+    if is_intra is None:
+        is_intra = torch.zeros((n,), dtype=torch.bool, device=dev)
+        i16_mode = torch.zeros((n,), **i32)
+        chroma_mode = torch.zeros((n,), **i32)
+        luma_dc = torch.zeros((n, 4, 4), **i32)
+    skip, is_intra, is_i4 = skip.bool(), is_intra.bool(), is_i4.bool()
+    qp_flat = qp_flat.to(torch.int32)
+    cbp_luma = cbp_luma.to(torch.int32)
+    cbp_chroma = cbp_chroma.to(torch.int32)
+    zig = const(ZIGZAG4_FRAME, dev, _i64)
+    luma_z = luma_lv.reshape(n, 16, 16)[:, :, zig]
+    cdc = cdc_blk.reshape(n, 2, 4)
+    cac_z = cac_blk.reshape(n, 2, 4, 16)[:, :, :, zig]
+
+    # ---- skip runs ----
+    idx = torch.arange(n, **i32)
+    coded = ~skip
+    last_coded = torch.cummax(torch.where(coded, idx, -1), 0).values
+    prev_coded = torch.cat([torch.full((1,), -1, **i32), last_coded[:-1]])
+    run = torch.where(coded, idx - prev_coded - 1, 0)
+    trailing = n - 1 - last_coded[-1]
+
+    def count(x, dim):
+        return (x != 0).sum(dim, dtype=torch.int32)
+
+    # ---- residual blocks: inter rows code 16 coeffs; I16 rows 15 AC plus
+    # the 16-coeff DC block ----
+    nnz_l = count(luma_z, 2)
+    nc_l = _nc_grid_dev(nnz_l, mbh, mbw, 4)
+    l_codes, l_lens, _, l_ov = residual_blocks_dev(
+        luma_z.reshape(n * 16, 16), nc_l.reshape(-1))
+    l_codes = l_codes.reshape(n, 16, BLOCK_SLOTS)
+    l_lens = l_lens.reshape(n, 16, BLOCK_SLOTS)
+    dc_z = luma_dc.reshape(n, 16)[:, zig]
+    dc_codes, dc_lens, _, dc_ov = residual_blocks_dev(dc_z, nc_l[:, 0])
+    l15_codes, l15_lens, _, l15_ov = residual_blocks_dev(
+        luma_z[:, :, 1:].reshape(n * 16, 15), nc_l.reshape(-1))
+    is_i16 = is_intra & ~is_i4
+    ii3 = is_i16[:, None, None]
+    l_codes = torch.where(ii3, l15_codes.reshape(n, 16, BLOCK_SLOTS),
+                          l_codes)
+    l_lens = torch.where(ii3, l15_lens.reshape(n, 16, BLOCK_SLOTS), l_lens)
+    l_ov = torch.where(is_i16[:, None], l15_ov.reshape(n, 16),
+                       l_ov.reshape(n, 16))
+    dc_lens = torch.where(is_i16[:, None], dc_lens, 0)
+    cdc_codes, cdc_lens, _, cdc_ov = residual_blocks_dev(
+        cdc.reshape(n * 2, 4), torch.zeros(n * 2, **i32), chroma_dc=True)
+    cdc_codes = cdc_codes.reshape(n, 2, BLOCK_SLOTS)
+    cdc_lens = cdc_lens.reshape(n, 2, BLOCK_SLOTS)
+    nnz_cac = count(cac_z[:, :, :, 1:], 3)
+    nc_c = torch.stack([_nc_grid_dev(nnz_cac[:, 0], mbh, mbw, 2),
+                        _nc_grid_dev(nnz_cac[:, 1], mbh, mbw, 2)], dim=1)
+    cac_codes, cac_lens, _, cac_ov = residual_blocks_dev(
+        cac_z[:, :, :, 1:].reshape(n * 8, 15), nc_c.reshape(-1))
+    cac_codes = cac_codes.reshape(n, 8, BLOCK_SLOTS)
+    cac_lens = cac_lens.reshape(n, 8, BLOCK_SLOTS)
+
+    # ---- header slots: 0 run, 1 mb_type, 2-17 I4 modes (z-scan), 18
+    # sub_mb_types, 19-22 te() ref_idx, 23 mvd0_x | chroma_mode, 24 mvd0_y |
+    # dqp (I16), 25-26 mvd1, 27-30 mvd2/mvd3 (P_8x8), 31 cbp, 32 dqp ----
+    h_codes = torch.zeros((n, 33), dtype=_i64, device=dev)
+    h_lens = torch.zeros((n, 33), **i32)
+    h_codes[:, 0], h_lens[:, 0] = ue_dev(run)
+    # carried-QP chain: inter / I4 MBs with residual and every I16 MB
+    has_resid = ((((cbp_luma > 0) | (cbp_chroma > 0)) & coded)
+                 | (is_i16 & coded))
+    prev_qp, eff_qp = _carried_qp(has_resid, qp_flat, slice_qp)
+    dqp = qp_flat - prev_qp
+    i16_code = (6 + i16_mode.to(torch.int32) + 4 * cbp_chroma
+                + 12 * (cbp_luma > 0).to(torch.int32))
+    c_i, l_i = ue_dev(torch.where(is_i4, 5, i16_code))
+    c, ln = ue_dev(part_mode)
+    h_codes[:, 1] = torch.where(is_intra, c_i, c)
+    h_lens[:, 1] = torch.where(is_intra, l_i, ln)
+    m_codes, m_lens = _i4_mode_codes_dev(is_i4, i4_modes, mbh, mbw)
+    h_codes[:, 2:18] = m_codes
+    h_lens[:, 2:18] = torch.where(coded[:, None], m_lens, 0)
+    part2 = (part_mode > 0) & ~is_intra
+    p88 = (part_mode == 3) & ~is_intra
+    h_codes[:, 18] = 0b1111
+    h_lens[:, 18] = torch.where(p88, 4, 0)
+    if two_refs:
+        live = (torch.ones((), dtype=torch.bool, device=dev)
+                if two_refs_live is None
+                else torch.as_tensor(two_refs_live, device=dev))
+        ref_bit = (1 - refidx.to(_i64))
+        gates = (~is_intra & live, part2 & live, p88 & live, p88 & live)
+        for pi, gate in enumerate(gates):
+            h_codes[:, 19 + pi] = ref_bit
+            h_lens[:, 19 + pi] = torch.where(gate, 1, 0)
+    c_cm, l_cm = ue_dev(chroma_mode)
+    c, ln = se_dev(mvd[:, 0])
+    h_codes[:, 23] = torch.where(is_intra, c_cm, c)
+    h_lens[:, 23] = torch.where(is_intra, l_cm, ln)
+    c_dq, l_dq = se_dev(torch.where(has_resid, dqp, 0))
+    c, ln = se_dev(mvd[:, 1])
+    h_codes[:, 24] = torch.where(is_intra, c_dq, c)
+    h_lens[:, 24] = torch.where(is_i4, 0, torch.where(is_intra, l_dq, ln))
+    for comp, slot in ((0, 25), (1, 26)):
+        c, ln = se_dev(mvd2[:, comp])
+        h_codes[:, slot] = c
+        h_lens[:, slot] = torch.where(part2, ln, 0)
+    for pi, base in ((0, 27), (1, 29)):
+        for comp in range(2):
+            c, ln = se_dev(mvd23[:, pi, comp])
+            h_codes[:, base + comp] = c
+            h_lens[:, base + comp] = torch.where(p88, ln, 0)
+    cbp_idx = cbp_chroma * 16 + cbp_luma
+    c, ln = ue_dev(lut(V.CBP_TO_GOLOMB_INTER, cbp_idx))
+    c4, l4 = ue_dev(lut(V.CBP_TO_GOLOMB_INTRA, cbp_idx))
+    h_codes[:, 31] = torch.where(is_i4, c4, c)
+    h_lens[:, 31] = torch.where(is_i4, l4, torch.where(is_intra, 0, ln))
+    h_codes[:, 32] = c_dq
+    h_lens[:, 32] = torch.where(is_i16, 0, torch.where(has_resid, l_dq, 0))
+
+    # ---- gating ----
+    coded3 = coded[:, None, None]
+    h_lens = torch.where(coded[:, None], h_lens, 0)
+    quad = const(_quad_of_raster(), dev)
+    qbit = (cbp_luma[:, None] >> quad[None, :]) & 1
+    l_lens = torch.where((qbit > 0)[:, :, None] & coded3, l_lens, 0)
+    dc_lens = torch.where(coded[:, None], dc_lens, 0)
+    cdc_lens = torch.where((cbp_chroma > 0)[:, None, None] & coded3,
+                           cdc_lens, 0)
+    cac_lens = torch.where((cbp_chroma == 2)[:, None, None] & coded3,
+                           cac_lens, 0)
+    order = const(LUMA4x4_RASTER, dev, _i64)
+    l_codes = l_codes[:, order]
+    l_lens = l_lens[:, order]
+    codes = torch.cat([h_codes, dc_codes, l_codes.reshape(n, -1),
+                       cdc_codes.reshape(n, -1), cac_codes.reshape(n, -1)],
+                      dim=1)
+    lens = torch.cat([h_lens, dc_lens, l_lens.reshape(n, -1),
+                      cdc_lens.reshape(n, -1), cac_lens.reshape(n, -1)],
+                     dim=1)
+    # level overflow counts only in blocks that are written; as in the JAX
+    # twin, the luma overflow flags (raster) meet the written-block test
+    # taken after the reorder to coding order
+    lvl_over = ((l_ov & (l_lens.sum(2) > 0)).any()
+                | (dc_ov & (dc_lens.sum(1) > 0)).any()
+                | (cdc_ov.reshape(n, 2) & (cdc_lens.sum(2) > 0)).any()
+                | (cac_ov.reshape(n, 8) & (cac_lens.sum(2) > 0)).any())
+    return codes, lens, eff_qp, lvl_over, trailing
+
+
+def encode_pframe_entropy_dev(skip, mvd, cbp_luma, cbp_chroma, qp_flat,
+                              slice_qp, luma_lv, cdc_blk, cac_blk, *,
+                              mbw: int, mbh: int, cap_words: int, **kw):
+    """P-slice MB layer (x264_tpu cavlc_jax.encode_pframe_entropy_dev):
+    P_L0_16x16/16x8/8x16/P_8x8 and P_Skip runs, I16 and I_4x4 in P, one or
+    two references (keywords as `_pframe_mb_codes`; `two_refs_live` gates
+    the te() ref_idx bits). Returns (words, total_bits, eff_qp)."""
+    n = mbw * mbh
+    codes, lens, eff_qp, lvl_over, trailing = _pframe_mb_codes(
+        skip, mvd, cbp_luma, cbp_chroma, qp_flat, slice_qp, luma_lv,
+        cdc_blk, cac_blk, mbw=mbw, mbh=mbh, **kw)
+    # the trailing skip run: one more group row in the stream
+    tc, tl = ue_dev(trailing.clamp(min=0))
+    trow_c = torch.zeros((1, codes.shape[1]), dtype=_i64, device=codes.device)
+    trow_l = torch.zeros((1, codes.shape[1]), dtype=torch.int32,
+                         device=codes.device)
+    trow_c[0, 0] = tc
+    trow_l[0, 0] = torch.where(trailing > 0, tl, 0)
+    words, total_bits = pack_mb_stream(
+        torch.cat([codes, trow_c]), torch.cat([lens, trow_l]), cap_words // n,
+        cap_words, force_over=lvl_over)
+    return words, total_bits, eff_qp
 
 
 def words_to_bytes(words: np.ndarray, total_bits: int) -> tuple[bytes, int]:

@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+from ..device import const
+from . import tables
+
 
 def _along(x, dim, fn):
     """Apply a 4-point 1-D transform `fn` along `dim` of an int32 tensor."""
@@ -77,3 +80,9 @@ def hadamard2x2(x):
 
 
 ihadamard2x2 = hadamard2x2
+
+
+def zigzag4(blocks):
+    """Scan [..., 4, 4] -> [..., 16] in zig-zag order."""
+    flat = blocks.reshape(blocks.shape[:-2] + (16,))
+    return flat[..., const(tables.ZIGZAG4_FRAME, blocks.device, torch.int64)]

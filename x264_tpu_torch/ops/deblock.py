@@ -9,8 +9,8 @@ the V phase. Each phase gathers one region per MB of the diagonal straight
 from raster planes (the regions of one phase do not overlap), filters it
 and scatters it back.
 
-Only the all-intra strengths of an I frame are built here
-(`intra_strengths`); compute_strengths comes with P frames.
+The strengths come from `intra_strengths` (I frames) or
+`compute_strengths` (P frames).
 """
 
 from __future__ import annotations
@@ -131,6 +131,52 @@ def intra_strengths(mbw: int, mbh: int, device):
     bs = torch.full((mbh, mbw, 4, 4), 3, dtype=torch.int32, device=device)
     bs[:, :, 0, :] = 4
     return bs, bs
+
+
+def _rep4(a):
+    return a.repeat_interleave(4, 0).repeat_interleave(4, 1)
+
+
+def _shift_in(a, dim):
+    """a moved one step forward along `dim` (0 or 1), zero-filled: each
+    4x4 block sees the block to its left (dim 1) or above (dim 0)."""
+    z = torch.zeros_like(a.narrow(dim, 0, 1))
+    return torch.cat([z, a.narrow(dim, 0, a.shape[dim] - 1)], dim=dim)
+
+
+def compute_strengths(intra_mb, nnz4, mv_mb, *, mbw, mbh, ref_mb=None):
+    """Boundary strengths of a P frame (spec 8.7.2.1).
+
+    intra_mb [mbh, mbw] bool; nnz4 [mbh*4, mbw*4] int; mv_mb [mbh, mbw, 2]
+    MB-granular or [mbh*4, mbw*4, 2] 4x4-granular; ref_mb [mbh, mbw] the
+    per-MB L0 refIdx (two references: blocks on different pictures get
+    bs >= 1), or None. Returns (bs_v, bs_h) [mbh, mbw, 4 edges, 4 lines]."""
+    ih, iw = mbh * 4, mbw * 4
+    dev = nnz4.device
+    intra4 = _rep4(intra_mb)
+    mv4 = mv_mb if mv_mb.shape[0] == ih else _rep4(mv_mb)
+    ref4 = None if ref_mb is None else _rep4(ref_mb)
+
+    def edge_bs(dim):
+        # p = the block one step back along dim, q = the block itself
+        intra_p = _shift_in(intra4, dim)
+        nnz_p = _shift_in(nnz4, dim)
+        mv_p = _shift_in(mv4, dim)
+        pos = torch.arange(iw if dim == 1 else ih, device=dev)
+        mb_edge = (pos % 4 == 0)[None, :] if dim == 1 else \
+            (pos % 4 == 0)[:, None]
+        bs_intra = torch.where(mb_edge, 4, 3).expand(ih, iw)
+        nz = (nnz4 > 0) | (nnz_p > 0)
+        mv_diff = ((mv4 - mv_p).abs() >= 4).any(-1)
+        if ref4 is not None:
+            mv_diff = mv_diff | (ref4 != _shift_in(ref4, dim))
+        bs_inter = torch.where(nz, 2, torch.where(mv_diff, 1, 0))
+        return torch.where(intra4 | intra_p, bs_intra, bs_inter) \
+            .to(torch.int32)
+
+    bs_v = edge_bs(1).reshape(mbh, 4, mbw, 4).permute(0, 2, 3, 1)
+    bs_h = edge_bs(0).reshape(mbh, 4, mbw, 4).permute(0, 2, 1, 3)
+    return bs_v.contiguous(), bs_h.contiguous()
 
 
 def _region(plane, r0, c0, h, w):

@@ -4,10 +4,15 @@ border extension and the 6-tap half-pel planes, built once per DPB push.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 PAD = 32          # luma border extension
 CPAD = 32         # chroma border
+
+# qpel index (my&3)*4 + (mx&3) -> source hpel planes (0=full,1=H,2=V,3=C)
+HPEL_REF0 = np.array([0, 1, 1, 1, 0, 1, 1, 1, 2, 3, 3, 3, 0, 1, 1, 1])
+HPEL_REF1 = np.array([0, 0, 0, 0, 2, 2, 3, 2, 2, 2, 3, 2, 2, 2, 3, 2])
 
 
 def _clamped(plane, top, bottom, left, right):
