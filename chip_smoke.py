@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. build the hand-written CUDA kernels (csrc/commit.cu, nvcc, sm_90a)
-     and print what ptxas reports;
+     and print what ptxas reports; build and load the host CABAC writer
+     (csrc/cabac.cpp, g++) beside it, both compilers started together;
   2. hold the frame kernel (one persistent launch per frame) against its
      plain PyTorch version (commit_ref) on the card, bit-exact (tolerance
      0: every output is an integer), in the I16, I16+I4 and mixed
@@ -25,22 +26,32 @@ Phases (any failure exits non-zero and prints no result line):
      (preset medium, CAVLC) on CUDA and on the CPU: the streams must be
      byte-identical, and tools/refdec.py must decode each CUDA stream to
      its reconstruction; then the same CUDA == CPU check on 4 IPPP frames
-     at 640x360;
-  4. the all-intra path: 4 frames of the bench's 1080p clip (bench.py
+     at 640x360; then all of it again with CABAC (trellis on): IPPP x5 at
+     64x48 and x4 at 640x360 at CQP 26, and IPPP x5 at 64x48 at CRF 23
+     with AQ (MB-tree off), the 64x48 streams through refdec;
+  4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernel's launch count reset
      just before and read just after (one launch per encoded frame);
      frame 0 must match a CPU encode of the same frame byte for byte;
-  5. the P main path (what bench.py times): 6 frames of the same clip,
+  5. the P main path (what bench.py times): 5 frames of the same clip,
      IPPP at preset medium (2 references, weightp, partitions, subme 7,
      I_4x4 and intra in P), CQP 26, CAVLC, through Encoder.encode on
      CUDA, the launch count reset just before and read just after (one
      mixed + I_4x4 launch per P frame, one per I frame);
+  7. the CABAC main path (bench.py's BD-rate sweep, make_params(26,
+     cabac=True)): IDR + 3 P of the same clip through Encoder.encode on
+     CUDA: the host C++ writer, trellis, no P_8x8; the launch count reset
+     just before and read just after (one launch per frame); bytes beside
+     phase 5's CAVLC bytes for the same frames; frame 0 must match a CPU
+     encode of the same frame byte for byte;
   6. print fps, the kernels' and the plain version's time per frame,
      per-stage breakdowns of a 1080p I frame and of a 1080p P frame with
      two references (the P path's own stage functions timed while
      Encoder.encode runs the clip again; its stream must equal phase
-     5's), a P frame's device time per stage and device idle share
+     5's), the same breakdown for the CABAC configuration (with the
+     trellis, the decision packing, the device-to-host copy and the C++
+     writer; its stream must equal phase 7's), a P frame's device time per stage and device idle share
      under torch.profiler, the kernel line, the card's name and power
      limit, and the result; fail if `jax` or any module of the
      `x264_tpu` package entered the process.
@@ -53,8 +64,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_FRAMES = 4          # all-intra path
-N_P_FRAMES = 6        # IPPP main path: IDR + 5 P
+N_FRAMES = 3          # all-intra path
+N_P_FRAMES = 5        # IPPP main path: IDR + 4 P
+N_CABAC_FRAMES = 4    # CABAC main path: IDR + 3 P (frames 2-3: two refs)
 QP = 26
 
 
@@ -65,6 +77,21 @@ def fail(msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+MARKS = []            # (what ends here, host clock), printed in phase 6
+
+
+def mark(name):
+    """The work since the last mark was `name`."""
+    MARKS.append((name, time.time()))
+
+
+def phase_seconds():
+    out = {}
+    for (_, t0), (name, t1) in zip(MARKS, MARKS[1:]):
+        out[name] = round(out.get(name, 0.0) + t1 - t0, 1)
+    return out
 
 
 def intra_params(w, h, qp=QP):
@@ -85,6 +112,24 @@ def ippp_params(w, h, qp=QP):
     p = intra_params(w, h, qp)
     p.keyint_max = 250
     p.bframe = 0
+    return p
+
+
+def cabac_params(w, h, qp=QP):
+    """bench.py's BD-rate sweep, make_params(qp, cabac=True): ippp_params
+    with the CABAC writer (so trellis 1 runs, and no P_8x8)."""
+    p = ippp_params(w, h, qp)
+    p.cabac = True
+    return p
+
+
+def crf_aq_params(w, h, rf=23.0):
+    """IPPP CABAC at CRF with AQ (variance, the preset's strength); the
+    MB-tree lookahead is off."""
+    p = cabac_params(w, h)
+    p.rc.rc_method = 1
+    p.rc.rf_constant = rf
+    p.rc.mb_tree = False
     return p
 
 
@@ -168,6 +213,14 @@ def cuda_ms(torch, fn, runs):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / runs
+
+
+def timed_ref(torch, C, args, kw):
+    """commit_ref on these inputs -> (its outputs, its time in ms: one
+    run, CUDA events around it)."""
+    box = []
+    ms = cuda_ms(torch, lambda: box.append(C.commit_ref(*args, **kw)), 1)
+    return box[0], ms
 
 
 PREFILL_CYCLES = 20_000_000     # ~10 ms of torch.cuda._sleep
@@ -294,6 +347,13 @@ def refdec_decode(stream, w, h):
 
 
 def check_clean_imports():
+    """Import every module of the port, then fail on jax or x264_tpu."""
+    import importlib
+    import pkgutil
+    import x264_tpu_torch
+    for m in pkgutil.walk_packages(x264_tpu_torch.__path__,
+                                   "x264_tpu_torch."):
+        importlib.import_module(m.name)
     bad = sorted(m for m in sys.modules if m == "jax"
                  or m.startswith(("jax.", "jaxlib")) or m == "x264_tpu"
                  or m.startswith("x264_tpu."))
@@ -389,13 +449,33 @@ def main():
         f"{torch.version.cuda}")
 
     # ---- phase 1: build ----
+    mark("start")
+    import threading
+    from x264_tpu_torch.entropy import cabac_host
+    cabac_build = {}
+
+    def build_cabac():
+        t = time.time()
+        try:
+            cabac_host._load()
+        except Exception as e:          # reported by the main thread
+            cabac_build["error"] = e
+        cabac_build["s"] = time.time() - t
+
     t0 = time.time()
+    th = threading.Thread(target=build_cabac)
+    th.start()
     lib = C.build_library()
     C._library()
     cap = C.grid_capacity(dev)
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
         f"{os.path.relpath(lib, ROOT)}; frame kernel: {cap} co-resident "
         f"blocks")
+    th.join()
+    if "error" in cabac_build:
+        fail(f"csrc/cabac.cpp did not build or load: {cabac_build['error']}")
+    log(f"phase 1 build: csrc/cabac.cpp (g++, started with nvcc) built and "
+        f"loaded in {cabac_build['s']:.2f} s")
     build_log = os.path.join(os.path.dirname(lib), "build.log")
     if os.path.exists(build_log):
         with open(build_log) as f:
@@ -404,6 +484,7 @@ def main():
                     log("phase 1 ptxas: " + line.strip())
 
     # ---- phase 2: kernels vs plain version on the card ----
+    mark("1 build")
     clip = synth_clip(N_P_FRAMES)
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
@@ -429,7 +510,7 @@ def main():
             args, kw = commit_inputs(torch, enc, planes, qp_i, seed=7,
                                      mixed=variant == "mixed",
                                      with_i4=variant != "i16")
-            ref = C.commit_ref(*args, **kw)
+            ref, ref_ms = timed_ref(torch, C, args, kw)
             runs = [("frame kernel", C.commit_cuda(*args, **kw))]
             if label == "1920x1088":
                 runs.append(("frame kernel, 7 blocks",
@@ -449,8 +530,9 @@ def main():
                     fail(f"{kname} disagrees with commit_ref ({label} "
                          f"{variant})")
             if label == "1920x1088" and variant == "i16+i4":
-                timing_args = (args, kw, ref)
+                timing_args = (args, kw, ref, ref_ms)
 
+    mark("2 kernel vs commit_ref, 4 sizes x 3 variants")
     # the mixed + I_4x4 variant on a real P frame: the arguments of the
     # commit that the encoder's own dispatch of frame 1 (against frame
     # 0's reconstruction) makes
@@ -458,7 +540,7 @@ def main():
     enqueue(enc_p, clip[0], TYPE_IDR, 0)
     margs, mkw = captured_commit(enc_p, clip[1], 1)
     del enc_p
-    mref = C.commit_ref(*margs, **mkw)
+    mref, mixed_plain_ms = timed_ref(torch, C, margs, mkw)
     merr = max_abs_err(mref, C.commit_cuda(*margs, **mkw))
     worst = max(worst, merr)
     n_mb = margs[7] * margs[8]
@@ -479,18 +561,14 @@ def main():
     for prog in mprogs:
         C.check_progress(prog, margs[7])
     mixed_ms = sum(mixed_runs) / len(mixed_runs)
-    mixed_plain_ms = cuda_ms(torch, lambda: C.commit_ref(*margs, **mkw), 1)
     m_bound_ms, m_bound_by, m_bytes, m_ops = commit_bound(margs, mkw, mref)
     log(f"phase 2 mixed+i4 commit per 1080p P frame (CUDA events, 20 runs "
         f"each): {mixed_runs[0]:.4f} / {mixed_runs[1]:.4f} ms; commit_ref "
         f"{mixed_plain_ms:.1f} ms; bound {m_bound_ms * 1e3:.3f} us by "
         f"{m_bound_by} ({m_bytes} bytes, {m_ops} integer ops)")
 
-    args, kw, ref = timing_args
+    args, kw, ref, plain_ms = timing_args
     bound_ms, bound_by, nbytes, ops = commit_bound(args, kw, ref)
-
-    def run_plain():
-        C.commit_ref(*args, **kw)
 
     def run_old():
         C.commit_cuda_diag(*args, **kw)
@@ -507,15 +585,14 @@ def main():
     old_ms.append(cuda_ms(torch, run_old, 20))
     for prog in progs:
         C.check_progress(prog, args[7])
-    plain_ms = [cuda_ms(torch, run_plain, 1) for _ in range(2)]
     k_ms = sum(new_ms) / len(new_ms)
     e_ms = sum(old_ms) / len(old_ms)
-    p_ms = sum(plain_ms) / len(plain_ms)
+    p_ms = plain_ms
     log(f"phase 2 commit per 1080p frame (I16+I4, CUDA events, 20 runs "
         f"each; old, new, new, old): per-diagonal kernel {old_ms[0]:.4f} / "
         f"{old_ms[1]:.4f} ms, frame kernel {new_ms[0]:.4f} / "
-        f"{new_ms[1]:.4f} ms; commit_ref {plain_ms[0]:.1f} / "
-        f"{plain_ms[1]:.1f} ms; bound {bound_ms * 1e3:.3f} us by "
+        f"{new_ms[1]:.4f} ms; commit_ref {plain_ms:.1f} ms (1 run); "
+        f"bound {bound_ms * 1e3:.3f} us by "
         f"{bound_by} ({nbytes} bytes, {ops} integer ops)")
     split = launch_split(torch, C, args, kw)
     log("phase 2 per-diagonal kernel, launch vs work (us per launch): "
@@ -528,6 +605,7 @@ def main():
             + json.dumps(kernel_stats(torch, C, args, kw, grid)))
 
     # ---- phase 3: 64x48 stream, CUDA vs CPU, refdec ----
+    mark("2 mixed kernel on a real P frame, timings, counters")
     yy, xx = np.mgrid[0:48, 0:64]
     frames3 = []
     for i in range(3):
@@ -586,7 +664,45 @@ def main():
     log(f"phase 3 640x360 IPPP x4: CUDA stream == CPU stream ({len(s_gpu)} "
         f"bytes; CUDA {t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
 
-    # ---- phase 4: the all-intra path, 4 x 1080p through Encoder.encode --
+    mark("3 CUDA vs CPU streams, CAVLC")
+    # CABAC (trellis on): the same checks, then CRF with AQ
+    for label, make, frames_c, w, h, dec in (
+            ("64x48 IPPP CABAC x5", cabac_params, mov, 64, 48, True),
+            ("64x48 IPPP CABAC CRF+AQ x5", crf_aq_params, mov, 64, 48, True),
+            ("640x360 IPPP CABAC x4", cabac_params, mid, 640, 360, False)):
+        pc = make(w, h)
+        pc.full_recon = dec
+        enc_g = Encoder(pc, device=dev)
+        t0 = time.time()
+        s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture)
+        t_gpu = time.time() - t0
+        t0 = time.time()
+        s_cpu, _ = encode_stream(Encoder(make(w, h), device="cpu"), frames_c,
+                                 Picture)
+        t_cpu = time.time() - t0
+        want = [TYPE_IDR] + [TYPE_P] * (len(frames_c) - 1)
+        if [o.i_type for o in o_gpu] != want:
+            fail(f"{label}: frame types {[o.i_type for o in o_gpu]}")
+        if s_gpu != s_cpu:
+            fail(f"{label}: CUDA and CPU streams differ")
+        if enc_g.stats["mb"]["P"]["8x8"] != 0:
+            fail(f"{label}: a CABAC frame coded P_8x8 MBs")
+        note = ""
+        if dec:
+            decoded = refdec_decode(s_gpu, w, h)
+            if len(decoded) != len(frames_c) or not all(
+                    np.array_equal(d[c], o.recon[c])
+                    for d, o in zip(decoded, o_gpu) for c in range(3)):
+                fail(f"{label}: refdec does not decode the CUDA stream to "
+                     f"its recon")
+            note = "; refdec decodes it to the CUDA reconstruction"
+        log(f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
+            f"bytes, QPs {[o.qp for o in o_gpu]}, P MBs "
+            f"{enc_g.stats['mb']['P']}; CUDA {t_gpu:.1f} s, CPU "
+            f"{t_cpu:.1f} s){note}")
+
+    # ---- phase 4: the all-intra path, 3 x 1080p through Encoder.encode --
+    mark("3 CUDA vs CPU streams, CABAC and CRF+AQ")
     p4 = intra_params(1920, 1080)
     p4.analyse.psnr = True
     enc = Encoder(p4, device=dev)
@@ -614,16 +730,17 @@ def main():
     log("phase 4 PSNR Y/U/V per frame: "
         + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
                    for o in outs))
+    # a CPU encode of frame 0 alone: headers and the IDR, which is how
+    # the path's own stream must begin
     s_cpu1, _ = encode_stream(Encoder(intra_params(1920, 1080),
                                       device="cpu"), clip[:1], Picture)
-    s_gpu1, _ = encode_stream(Encoder(intra_params(1920, 1080), device=dev),
-                              clip[:1], Picture)
-    if s_cpu1 != s_gpu1:
+    if not stream.startswith(s_cpu1):
         fail("1080p frame 0: CUDA stream differs from the CPU port's")
     log(f"phase 4 1080p frame 0: CUDA stream == CPU stream "
-        f"({len(s_gpu1)} bytes)")
+        f"({len(s_cpu1)} bytes with the headers)")
 
-    # ---- phase 5: the P main path, IDR + 5 P at 1080p ----
+    # ---- phase 5: the P main path, IDR + 4 P at 1080p ----
+    mark("4 all-intra path and its CPU frame 0")
     p5 = ippp_params(1920, 1080)
     p5.analyse.psnr = True
     enc5 = Encoder(p5, device=dev)
@@ -658,28 +775,98 @@ def main():
         + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
                    for o in outs5))
 
+    # ---- phase 7: the CABAC main path, IDR + 3 P at 1080p ----
+    mark("5 IPPP CAVLC path")
+    p7 = cabac_params(1920, 1080)
+    p7.analyse.psnr = True
+    if not (p7.cabac and p7.analyse.trellis == 1):
+        fail("the CABAC configuration lost CABAC or trellis 1")
+    enc7 = Encoder(p7, device=dev)
+    torch.cuda.synchronize()
+    C.commit.launches = 0
+    t0 = time.time()
+    stream7, outs7 = encode_stream(enc7, clip[:N_CABAC_FRAMES], Picture)
+    torch.cuda.synchronize()
+    wall7 = time.time() - t0
+    launches_c = C.commit.launches
+    types7 = [o.i_type for o in outs7]
+    retries7 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs7)
+    log(f"phase 7 CABAC main path: {len(outs7)} frames, types {types7}, "
+        f"{len(stream7)} bytes, bytes by type "
+        f"{enc7.stats['bytes_by_type']}, QPs {[o.qp for o in outs7]}, "
+        f"commit launches {launches_c} (= {N_CABAC_FRAMES} frames + "
+        f"{retries7} re-encodes), P MBs {enc7.stats['mb']['P']}, weightp "
+        f"frames {enc7.stats.get('weightp_frames', 0)}")
+    if types7 != [TYPE_IDR] + [TYPE_P] * (N_CABAC_FRAMES - 1):
+        fail(f"CABAC frame types {types7}")
+    if launches_c != N_CABAC_FRAMES + retries7:
+        fail(f"commit launches {launches_c} != {N_CABAC_FRAMES} + "
+             f"{retries7}")
+    if enc7.stats["mb"]["P"]["8x8"] != 0:
+        fail("a CABAC frame coded P_8x8 MBs")
+    for o in outs7:
+        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
+        if shapes != [(1080, 1920), (540, 960), (540, 960)]:
+            fail(f"recon shapes {shapes}")
+        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
+            fail(f"PSNR {o.psnr} (expected finite and > 30 dB)")
+    log("phase 7 PSNR Y/U/V per frame: "
+        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
+                   for o in outs7))
+    log(f"phase 7 bytes per frame, CABAC: {frame_bytes(stream7)}; CAVLC "
+        f"(phase 5, the same frames): "
+        f"{frame_bytes(stream5)[:N_CABAC_FRAMES]}")
+    t0 = time.time()
+    s_cpu7, _ = encode_stream(Encoder(cabac_params(1920, 1080),
+                                      device="cpu"), clip[:1], Picture)
+    t_cpu7 = time.time() - t0
+    if not stream7.startswith(s_cpu7):
+        fail("1080p CABAC frame 0: CUDA stream differs from the CPU port's")
+    log(f"phase 7 1080p CABAC frame 0: CUDA stream == CPU stream "
+        f"({len(s_cpu7)} bytes with the headers; CPU {t_cpu7:.1f} s)")
+
     # ---- phase 6: report ----
+    mark("7 IPPP CABAC path and its CPU frame 0")
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
                              qp_i)
-    p_stages, prof, stream6 = p_stage_breakdown(torch, p5, clip, dev)
+    p_stages, prof, stream6 = p_stage_breakdown(torch, p5, clip, dev,
+                                                P_TIMED)
     if stream6 != stream5:
         fail("the timed IPPP encode's stream differs from phase 5's")
+    mark("6 I and CAVLC P stage breakdowns")
+    c_stages, c_prof, stream8 = p_stage_breakdown(
+        torch, p7, clip[:N_CABAC_FRAMES], dev, CABAC_TIMED)
+    if stream8 != stream7:
+        fail("the timed CABAC encode's stream differs from phase 7's")
+    mark("6 CABAC P stage breakdown")
     fps = N_FRAMES / wall
     fps5 = N_P_FRAMES / wall5
+    fps7 = N_CABAC_FRAMES / wall7
     log(f"phase 6 fps ({N_FRAMES} x 1080p all-intra, Encoder.encode, host "
         f"clock, first frame included): {fps:.4f} ({wall:.3f} s)")
     log(f"phase 6 fps ({N_P_FRAMES} x 1080p IPPP, Encoder.encode, host "
         f"clock, first frame included): {fps5:.4f} ({wall5:.3f} s)")
+    log(f"phase 6 fps ({N_CABAC_FRAMES} x 1080p IPPP CABAC, Encoder.encode, "
+        f"host clock, first frame included): {fps7:.4f} ({wall7:.3f} s)")
     log("phase 6 stages ms per 1080p I frame (host clock, synchronised): "
         + json.dumps(stages))
     log("phase 6 stages ms per 1080p P frame, two references (host clock, "
-        "synchronised; the Encoder.encode calls that dispatch P frames 2-4 "
-        "and finalize 1-3; its stream == phase 5's): "
+        "synchronised; the Encoder.encode calls that dispatch P frames 2-3 "
+        "and finalize 1-2; its stream == phase 5's): "
         + json.dumps(p_stages))
     log("phase 6 1080p P frame under torch.profiler (the encode call that "
-        "dispatches P frame 5 and finalizes 4): " + (
+        "dispatches P frame 4 and finalizes 3): " + (
         json.dumps(prof) if prof else "the profiler saw no device time "
         "(device idle share not measured)"))
+    log("phase 6 stages ms per 1080p CABAC P frame, two references (host "
+        "clock, synchronised; the Encoder.encode call that dispatches P "
+        "frame 2 and finalizes 1; its stream == phase 7's): "
+        + json.dumps(c_stages))
+    log("phase 6 1080p CABAC P frame under torch.profiler (the encode call "
+        "that dispatches P frame 3 and finalizes 2): " + (
+        json.dumps(c_prof) if c_prof else "the profiler saw no device time "
+        "(device idle share not measured)"))
+    log("phase 6 host seconds by phase: " + json.dumps(phase_seconds()))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -692,6 +879,7 @@ def main():
         "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "earlier_ms": e_ms,
         "launches_all_intra_path": launches,
+        "launches_cabac_path": launches_c,
         "mixed_p_frame_ms": mixed_ms, "mixed_p_frame_plain_ms":
         mixed_plain_ms, "mixed_p_frame_bound_ms": m_bound_ms,
         "mixed_p_frame_bound_by": m_bound_by}]}))
@@ -704,7 +892,7 @@ def main():
 
 def stage_breakdown(torch, enc, planes, qp):
     """Host-clock time of each stage of one 1080p I frame (synchronised
-    after each stage; mean of 3 runs after one warm-up)."""
+    after each stage; mean of 2 runs after one warm-up)."""
     from x264_tpu_torch.encoder import intra
     from x264_tpu_torch.encoder.frame_encode import build_qp_maps
     from x264_tpu_torch.encoder.lookahead import intra_blocks, lowres_plane
@@ -725,7 +913,7 @@ def stage_breakdown(torch, enc, planes, qp):
         acc.setdefault(key, []).append((time.perf_counter() - t0) * 1e3)
         return out
 
-    for _ in range(4):
+    for _ in range(3):
         timed("lookahead", lambda: intra_blocks(lowres_plane(y)[0]))
         qp_mb, qpc_mb = build_qp_maps(enc, y, u, v, qp)
         lam = intra.mb_lambda(qp_mb)
@@ -803,7 +991,15 @@ class StageTimer:
              ("inter", "p_merge_core", "merge_cbp_skip"),
              ("inter", "encode_pframe_entropy_dev", "cavlc"),
              ("inter", "p_deblock_core", "deblock"),
-             ("inter", "finalize_slice", "finalize_slice"))
+             ("inter", "finalize_slice", "finalize_slice"),
+             # CABAC frames only: the trellis inside xfrm, the decision
+             # packing, and the host tail split into the device-to-host
+             # copy, the C++ writer and the rest (reorder, header, NAL)
+             ("inter", "trellis_4x4", "trellis"),
+             ("inter", "p_decisions_core", "decisions"),
+             ("inter", "decisions_to_host", "decisions_to_host"),
+             ("inter", "encode_slice_cabac", "cabac_writer"),
+             ("inter", "cabac_finalize_pframe", "cabac_finalize"))
 
     def __init__(self, torch, enc, ranges=False):
         from x264_tpu_torch.encoder import inter, lookahead
@@ -855,24 +1051,40 @@ class StageTimer:
         return False
 
 
-P_TIMED = (3, 4, 5)     # encode calls of clip frames 3-5: P 2-4 dispatched
+P_TIMED = (3, 4)        # encode calls of clip frames 3-4: P 2-3 dispatched
+CABAC_TIMED = (3,)      # of the 4-frame CABAC clip: P 2 dispatched
 
 
-def p_stage_breakdown(torch, params, clip, dev):
+def frame_bytes(stream):
+    """Bytes of each coded picture (slice NALs, start codes included) of
+    an Annex-B stream: what follows each start code whose NAL type is 1
+    or 5, up to the next start code."""
+    cuts = []
+    i = stream.find(b"\x00\x00\x01")
+    while i >= 0:
+        cuts.append(i)
+        i = stream.find(b"\x00\x00\x01", i + 3)
+    cuts.append(len(stream))
+    return [b - a for a, b in zip(cuts, cuts[1:])
+            if (stream[a + 3] & 31) in (1, 5)]
+
+
+def p_stage_breakdown(torch, params, clip, dev, timed_calls):
     """Stages of the P path as Encoder.encode runs them, per P frame with
     two references: a fresh encoder takes the IPPP clip; the calls that
-    take frames 3, 4 and 5 (each dispatches the P frame before it, which
-    searches two references, and finalizes the one before that) run
-    under a StageTimer; the first flush call (P frame 5 dispatched, 4
-    finalized) runs under torch.profiler (p_device_profile). Returns
-    (ms per frame by stage, the profile, the whole stream)."""
+    take the frames `timed_calls` (each dispatches the P frame before it,
+    which searches two references, and finalizes the one before that) run
+    under a StageTimer; the first flush call (the last P frame
+    dispatched, the one before it finalized) runs under torch.profiler
+    (p_device_profile). Returns (ms per frame by stage, the profile, the
+    whole stream)."""
     from x264_tpu_torch.encoder.encoder import Encoder, Picture, annexb_bytes
     enc = Encoder(params, device=dev)
     stream = annexb_bytes(enc.headers())
     timer = StageTimer(torch, enc)
     wall = 0.0
     for i, frame in enumerate(clip):
-        if i in P_TIMED:
+        if i in timed_calls:
             with timer:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -889,7 +1101,7 @@ def p_stage_breakdown(torch, params, clip, dev):
         stream += annexb_bytes(nals)
         if out is None:
             break
-    runs = len(P_TIMED)
+    runs = len(timed_calls)
     stages = {k: round(v / runs, 3) for k, v in timer.ms.items()}
     stages["unstaged"] = round((wall - sum(timer.ms.values())) / runs, 3)
     stages["encode_call"] = round(wall / runs, 3)

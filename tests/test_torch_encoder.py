@@ -170,19 +170,28 @@ def test_lowres_and_intra_blocks_match_x264_tpu():
 
 
 def test_inter_frames_raise_not_implemented():
-    """IPPP at the bench's settings is ported (tests/test_torch_pframe.py);
-    B frames and the exhaustive motion search are not, and raise naming
-    their ROADMAP item."""
+    """IPPP at the bench's settings is ported, CAVLC and CABAC
+    (tests/test_torch_pframe.py, tests/test_torch_cabac.py); B frames, the
+    exhaustive motion search, MB-tree, periodic intra refresh and noise
+    reduction are not, and raise naming their ROADMAP item."""
     frames = synth_frames(3, 64, 48)
-    for what, value in (("bframe", 2), ("me_method", 3)):
+    for what in ("bframe", "me_method", "mb_tree", "intra_refresh",
+                 "noise_reduction"):
         p = intra_params(64, 48, 26)
         p.keyint_max = 250
         p.bframe = 0
         if what == "bframe":
-            p.bframe = value
+            p.bframe = 2
             p.bframe_adaptive = 0      # B_ADAPT_NONE: B frames, always
+        elif what == "me_method":
+            p.analyse.me_method = 3
+        elif what == "mb_tree":
+            p.rc.rc_method = 1         # CRF: the one mode that keeps MB-tree
+            p.rc.mb_tree = True
+        elif what == "intra_refresh":
+            p.intra_refresh = True
         else:
-            p.analyse.me_method = value
+            p.analyse.noise_reduction = 100
         with pytest.raises(NotImplementedError, match="ROADMAP item"):
             encode_all(Encoder(p, device="cpu"), frames)
 

@@ -179,7 +179,8 @@ class Encoder:
             raise NotImplementedError("periodic intra refresh is not "
                                       "ported yet (ROADMAP item 12)")
         if self.p.analyse.ssim:
-            raise NotImplementedError("SSIM is not ported yet")
+            raise NotImplementedError("SSIM is not ported yet "
+                                      "(ROADMAP item 7)")
         self.sps = sets.sps_init(self.p, self.p.sps_id)
         self.pps = sets.pps_init(self.p, self.sps, self.p.sps_id)
         self.mb_w, self.mb_h = self.p.mb_width, self.p.mb_height

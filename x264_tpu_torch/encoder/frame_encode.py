@@ -1,12 +1,13 @@
 """Per-frame dispatch (x264_tpu/encoder/frame_encode.py): I, IDR and P
-frames (CAVLC)."""
+frames, and the per-MB QP maps (constant, or with AQ / MB-tree offsets)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.tables import chroma_qp
+from ..device import const
+from ..ops.tables import CHROMA_QP_TABLE, chroma_qp
 from .encoder import TYPE_I, TYPE_IDR, TYPE_P
 
 
@@ -30,14 +31,26 @@ def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
 
 
 def build_qp_maps(enc, y, u, v, qp_try, tree_off=None):
-    """Per-MB (qp, qp_chroma) int32 maps on the frame's device. Constant
-    QP only: the AQ / MB-tree offsets are not ported yet."""
-    if enc.p.rc.aq_mode or tree_off is not None:
-        raise NotImplementedError("AQ / MB-tree QP offsets are not ported "
-                                  "yet (ROADMAP item 10)")
+    """Per-MB (qp, qp_chroma) int32 maps on the frame's device: AQ offsets
+    (+ the lookahead's MB-tree offsets when it provides them), the
+    reference's x264_adaptive_quant_frame + macroblock_tree_finish
+    composition."""
     mbh, mbw = enc.mb_h, enc.mb_w
-    qp_mb = torch.full((mbh, mbw), qp_try, dtype=torch.int32,
-                       device=y.device)
+    dev = y.device
+    if enc.p.rc.aq_mode or tree_off is not None:
+        from ..ops.aq import aq_offsets
+        adj = (aq_offsets(y, u, v, enc.p.rc.aq_strength)
+               if enc.p.rc.aq_mode else
+               torch.zeros((mbh, mbw), dtype=torch.float32, device=dev))
+        if tree_off is not None:
+            adj = adj + torch.as_tensor(np.asarray(tree_off, np.float32),
+                                        device=dev)
+        qp_mb = torch.round(qp_try + adj).to(torch.int32).clamp(
+            enc.p.rc.qp_min, enc.p.rc.qp_max).clamp(0, 51)
+        qpc_mb = const(CHROMA_QP_TABLE, dev)[
+            (qp_mb + enc.p.analyse.chroma_qp_offset).clamp(0, 51).long()]
+        return qp_mb, qpc_mb
+    qp_mb = torch.full((mbh, mbw), qp_try, dtype=torch.int32, device=dev)
     qpc = np.asarray(chroma_qp(np.full((mbh, mbw), qp_try),
                                enc.p.analyse.chroma_qp_offset), np.int32)
-    return qp_mb, torch.from_numpy(qpc).to(y.device)
+    return qp_mb, torch.from_numpy(qpc).to(dev)

@@ -1,7 +1,9 @@
-"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC, at the settings
-bench.py runs: preset medium's seeded full-pel search, the 16x8 / 8x16 /
-8x8 partitions, two references, weighted prediction, intra-in-P with
-I_4x4, the subme-7 RD tier, dct decimation and the deblock.
+"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC and CABAC, at the
+settings bench.py runs: preset medium's seeded full-pel search, the 16x8 /
+8x16 partitions (and 8x8 under CAVLC: x264_tpu's CABAC writer has no
+sub_mb_type, so its CABAC frames run without P8x8), two references,
+weighted prediction, intra-in-P with I_4x4, the subme-7 RD tier, trellis
+quantization of inter luma (CABAC only), dct decimation and the deblock.
 
 `encode_pframe` is the whole per-frame pipeline on the frame's device:
   1. full-pel ME per reference (`p_fullpel_core` -> motion_search_seeded);
@@ -12,7 +14,10 @@ I_4x4, the subme-7 RD tier, dct decimation and the deblock.
   5. the mixed wavefront commit and cbp / skip (`p_merge_core` ->
      ops/commit.commit: the CUDA kernel's mixed + I_4x4 variant on a card,
      commit_ref on the CPU);
-  6. CAVLC (entropy/cavlc_dev.encode_pframe_entropy_dev);
+  6. CAVLC on the device (entropy/cavlc_dev.encode_pframe_entropy_dev),
+     or for CABAC the decoder-carried QP and the decision tensors
+     (`p_decisions_core`) that the host C++ writer codes in finalize
+     (`cabac_finalize_pframe`);
   7. the deblock (`p_deblock_core`).
 
 x264_tpu's scans (lax.scan over offsets and candidates) are Python loops
@@ -29,17 +34,22 @@ import torch
 
 from ..device import const
 from ..entropy import nal as nal_mod
-from ..entropy.cavlc_dev import (_nc_grid_dev, encode_pframe_entropy_dev,
+from ..entropy.cabac_host import encode_slice_cabac
+from ..entropy.cavlc_dev import (LUMA4x4_RASTER, _nc_grid_dev,
+                                 encode_pframe_entropy_dev,
                                  residual_blocks_dev)
 from ..ops import dct, mc, predict, quant
 from ..ops.commit import (_chroma_blocks, _chroma_merge, _encode_luma_i16,
                           _luma_blocks, _luma_merge, commit)
 from ..ops.deblock import _rep4, compute_strengths, deblock_frame
+from ..ops.tables import ZIGZAG4_FRAME
+from ..ops.trellis import frame_ctx_costs, trellis_4x4
 from ..ops.warp import mb_windows_ref
 from ..params import ANALYSE_I4x4, ANALYSE_PSUB16x16
 from .frame_encode import build_qp_maps
-from .intra import (_mb_tiles, cap_bytes_per_mb, decide_modes_full,
-                    decide_modes_i4, finalize_slice, mb_lambda)
+from .intra import (_host, _mb_tiles, cap_bytes_per_mb, decide_modes_full,
+                    decide_modes_i4, finalize_slice, finalize_slice_cabac,
+                    mb_lambda)
 
 _i32 = torch.int32
 
@@ -450,25 +460,30 @@ for _b in range(16):
 
 
 def subpel_refine_all(hpel, y_src, mvs, lam, me_range: int, radius: int = 3,
-                      mvp_q=None):
-    """Qpel refinement of the 16x16, 16x8, 8x16 and 8x8 winners in one
-    pass over 9 lanes (x264_tpu inter.subpel_refine_all with p8x8=True).
-    Returns (mvq16 [n,2], pred16 [n,16,16], cost16 [n], q_parts [8,n,2],
-    pred_parts (t, b, l, r, q0..q3), cost_parts [8,n])."""
+                      mvp_q=None, p8x8: bool = True):
+    """Qpel refinement of the 16x16, 16x8 and 8x16 winners, and with p8x8
+    of the four 8x8 quadrants, in one pass over 5 or 9 lanes (x264_tpu
+    inter.subpel_refine_all).
+    Returns (mvq16 [n,2], pred16 [n,16,16], cost16 [n], q_parts [4|8,n,2],
+    pred_parts (t, b, l, r [, q0..q3]), cost_parts [4|8,n])."""
     H, W = y_src.shape
     n = (H // 16) * (W // 16)
     tiles = _mb_tiles(y_src, 16).reshape(n, 16, 16)
-    lane_mv = torch.stack(
-        [mvs["16x16"], mvs["16x8"][:, :, 0], mvs["16x8"][:, :, 1],
-         mvs["8x16"][:, :, 0], mvs["8x16"][:, :, 1]]
-        + [mvs["8x8"][:, :, q] for q in range(4)])       # [9, mbh, mbw, 2]
+    lane_mvs = [mvs["16x16"], mvs["16x8"][:, :, 0], mvs["16x8"][:, :, 1],
+                mvs["8x16"][:, :, 0], mvs["8x16"][:, :, 1]]
+    if p8x8:
+        lane_mvs += [mvs["8x8"][:, :, q] for q in range(4)]
+    L = len(lane_mvs)
+    lane_mv = torch.stack(lane_mvs)                      # [L, mbh, mbw, 2]
     win = _subpel_windows(hpel, lane_mv, me_range)
     bq, bp, bc = _subpel_refine_scan(
-        win, tiles, lane_mv.reshape(9, n, 2), lam,
-        const(_PART_MASKS, y_src.device), radius, mvp_q=mvp_q)
+        win, tiles, lane_mv.reshape(L, n, 2), lam,
+        const(_PART_MASKS[:L], y_src.device), radius, mvp_q=mvp_q)
     pred_parts = (bp[1, :, 0:8, :], bp[2, :, 8:16, :], bp[3, :, :, 0:8],
-                  bp[4, :, :, 8:16], bp[5, :, 0:8, 0:8], bp[6, :, 0:8, 8:16],
-                  bp[7, :, 8:16, 0:8], bp[8, :, 8:16, 8:16])
+                  bp[4, :, :, 8:16])
+    if p8x8:
+        pred_parts += (bp[5, :, 0:8, 0:8], bp[6, :, 0:8, 8:16],
+                       bp[7, :, 8:16, 0:8], bp[8, :, 8:16, 8:16])
     return bq[0], bp[0], bc[0], bq[1:], pred_parts, bc[1:]
 
 
@@ -492,12 +507,13 @@ def p_fullpel_core(y, ref_y_pad, lam, *, me_range):
 
 
 def p_subpel_core(y, ref_hpel, mvs, mvp_q_est, lam, w, o, *, me_range,
-                  weighted=True, return_cands=False):
+                  weighted=True, return_cands=False, p8x8=True):
     """One reference: qpel refinement of all partition lanes, the SATD
     partition choice and weighted prediction (x264_tpu
-    inter.p_subpel_core with partitions and p8x8). Returns a dict of
-    per-MB cost, pred_y, mvq, part_mode, mv_parts; with return_cands the
-    4 assembled candidates cand_pred [4,n,16,16] and cand_mv [4,n,4,2]."""
+    inter.p_subpel_core with partitions; p8x8 adds the P_8x8 candidate).
+    Returns a dict of per-MB cost, pred_y, mvq, part_mode, mv_parts; with
+    return_cands the 3 or 4 assembled candidates cand_pred [M,n,16,16] and
+    cand_mv [M,n,4,2]."""
     n = mvp_q_est.shape[0]
 
     def wp_apply(p):
@@ -506,33 +522,34 @@ def p_subpel_core(y, ref_hpel, mvs, mvp_q_est, lam, w, o, *, me_range,
         return p
 
     (mvq, pred16, cost16, q_parts, pp, c_parts) = subpel_refine_all(
-        ref_hpel, y, mvs, lam, me_range, mvp_q=mvp_q_est)
+        ref_hpel, y, mvs, lam, me_range, mvp_q=mvp_q_est, p8x8=p8x8)
     q_t, q_b, q_l, q_r = q_parts[0], q_parts[1], q_parts[2], q_parts[3]
     # partition cost = the sum of its parts' ME costs; P_8x8 also pays its
     # header delta (mb_type ue(3) + four sub_mb_type bits)
-    part_mode, inter_cost = _first_min([
-        cost16, c_parts[0] + c_parts[1], c_parts[2] + c_parts[3],
-        c_parts[4] + c_parts[5] + c_parts[6] + c_parts[7] + lam * 8])
+    costs = [cost16, c_parts[0] + c_parts[1], c_parts[2] + c_parts[3]]
+    cand_pred = [pred16, torch.cat([pp[0], pp[1]], dim=1),
+                 torch.cat([pp[2], pp[3]], dim=2)]
+    cand_mv = [mvq[:, None, :].expand(n, 4, 2),
+               torch.stack([q_t, q_b, q_t, q_b], dim=1),
+               torch.stack([q_l, q_r, q_l, q_r], dim=1)]
+    if p8x8:
+        costs.append(c_parts[4] + c_parts[5] + c_parts[6] + c_parts[7]
+                     + lam * 8)
+        cand_pred.append(torch.cat([torch.cat([pp[4], pp[5]], dim=2),
+                                    torch.cat([pp[6], pp[7]], dim=2)], dim=1))
+        cand_mv.append(torch.stack([q_parts[4], q_parts[5], q_parts[6],
+                                    q_parts[7]], dim=1))
+    part_mode, inter_cost = _first_min(costs)
     pm3 = part_mode[:, None, None]
-    pred_tb = torch.cat([pp[0], pp[1]], dim=1)
-    pred_lr = torch.cat([pp[2], pp[3]], dim=2)
-    pred_88 = torch.cat([torch.cat([pp[4], pp[5]], dim=2),
-                         torch.cat([pp[6], pp[7]], dim=2)], dim=1)
-    mv16 = mvq[:, None, :].expand(n, 4, 2)
-    mv_tb = torch.stack([q_t, q_b, q_t, q_b], dim=1)
-    mv_lr = torch.stack([q_l, q_r, q_l, q_r], dim=1)
-    mv_88 = torch.stack([q_parts[4], q_parts[5], q_parts[6], q_parts[7]],
-                        dim=1)
-    pred_y = torch.where(pm3 == 0, pred16, torch.where(
-        pm3 == 1, pred_tb, torch.where(pm3 == 2, pred_lr, pred_88)))
-    mv_parts = torch.where(pm3 == 0, mv16, torch.where(
-        pm3 == 1, mv_tb, torch.where(pm3 == 2, mv_lr, mv_88)))
+    pred_y, mv_parts = cand_pred[-1], cand_mv[-1]
+    for m in range(len(costs) - 2, -1, -1):
+        pred_y = torch.where(pm3 == m, cand_pred[m], pred_y)
+        mv_parts = torch.where(pm3 == m, cand_mv[m], mv_parts)
     out = {"mvq": mvq, "pred_y": wp_apply(pred_y), "cost": inter_cost,
            "part_mode": part_mode, "mv_parts": mv_parts}
     if return_cands:
-        out["cand_pred"] = wp_apply(torch.stack([pred16, pred_tb, pred_lr,
-                                                 pred_88]))
-        out["cand_mv"] = torch.stack([mv16, mv_tb, mv_lr, mv_88])
+        out["cand_pred"] = wp_apply(torch.stack(cand_pred))
+        out["cand_mv"] = torch.stack(cand_mv)
     return out
 
 
@@ -585,9 +602,10 @@ def _luma_bits(lv_z, mbh, mbw, lo=0):
 def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
               i16_mode, *, mbw, mbh, two_refs):
     """RD re-rank of the partition shape and of intra vs inter (x264_tpu
-    inter.p_rd_core with p8x8 and intra_rd): every candidate is coded in
-    full and priced SSD + lambda2 * (CAVLC luma bits + MVD / header / ref
-    bits). Returns (part_mode [n], pred_y [n,16,16], mv_parts [n,4,2],
+    inter.p_rd_core with intra_rd) over the M = 3 or 4 candidates it is
+    given: every candidate is coded in full and priced SSD + lambda2 *
+    (CAVLC luma bits + MVD / header / ref bits), under CABAC too, as in
+    x264_tpu. Returns (part_mode [n], pred_y [n,16,16], mv_parts [n,4,2],
     is_intra_rd [mbh, mbw])."""
     dev = y.device
     M = cand_pred.shape[0]
@@ -685,11 +703,14 @@ def _merge_plane(mb_tensor, s, hh, ww):
 
 def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
                 part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
-                use_i4, best_intra, qp_mb, qpc_mb, is_intra_override=None, *,
-                mbw, mbh, two_refs, decimate):
+                use_i4, best_intra, qp_mb, qpc_mb, is_intra_override=None,
+                trl_tabs=None, *, mbw, mbh, two_refs, decimate, p8x8=True):
     """Intra vs inter -> MVP / skip predictor / MVD -> chroma MC ->
-    transform, quant and decimation -> the inter reconstruction (x264_tpu
-    inter.p_xfrm_core with partitions, p8x8 and intra-in-P).
+    transform, quant (given trl_tabs = frame_ctx_costs(False, qp, cat=2),
+    the trellis: the RD-optimal requantization of the inter luma levels)
+    and decimation -> the inter reconstruction (x264_tpu inter.p_xfrm_core
+    with partitions and intra-in-P; without p8x8 no MB has part_mode 3 and
+    chroma is predicted from 2 partition slots, not 4).
     ref1_cuv_pad None: no MB takes reference 1. Returns the dict
     p_merge_core reads."""
     H, W = y.shape
@@ -733,6 +754,13 @@ def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
     qp = qp_mb.reshape(-1).to(_i32)
     w = dct.dct4x4(_luma_blocks(src_y.to(_i32) - pred_y))
     lv = quant.quant4x4(w, qp[:, None], intra=False)
+    if trl_tabs is not None:
+        # one batched Viterbi over all 16 n 4x4 blocks of the frame
+        sig_c, last_c, lvl_s = trl_tabs
+        out_z, _ = trellis_4x4(dct.zigzag4(lv).reshape(n * 16, 16),
+                               dct.zigzag4(w).reshape(n * 16, 16),
+                               qp.repeat_interleave(16), sig_c, last_c, lvl_s)
+        lv = dct.izigzag4(out_z).reshape(n, 16, 4, 4)
 
     # ---- chroma: one MC per partition slot, selected per pixel ----
     qpc = qpc_mb.reshape(-1).to(_i32)
@@ -745,7 +773,7 @@ def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
 
     def chroma_pred(cuv_pad):
         out = chroma_mc_warp(cuv_pad, mv_parts[:, 0], mbh, mbw)
-        for k in range(1, 4):
+        for k in range(1, 4 if p8x8 else 2):
             out = torch.where(pidc == k, chroma_mc_warp(
                 cuv_pad, mv_parts[:, k], mbh, mbw), out)
         return out
@@ -889,6 +917,62 @@ def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4):
     }
 
 
+def p_effqp_core(cm, slice_qp, *, mbw, mbh):
+    """Decoder-carried per-MB QP for the CABAC path: MBs that parse
+    mb_qp_delta update QP_prev: inter MBs with cbp > 0, every I16 MB (dqp
+    always coded), and I4 MBs only with residual."""
+    n = mbw * mbh
+    dev = cm["qp"].device
+    is_intra_f = cm["is_intra"].reshape(-1)
+    has_resid = (((cm["cbp_luma"] > 0) | (cm["cbp_chroma"] > 0))
+                 & ~cm["skip"]) | (is_intra_f & ~cm["is_i4_f"])
+    idxs = torch.arange(n, dtype=_i32, device=dev)
+    last_r = torch.cummax(torch.where(has_resid, idxs, -1), 0).values
+    prev_r = torch.cat([torch.full((1,), -1, dtype=_i32, device=dev),
+                        last_r[:-1]])
+    prev_qp = torch.where(prev_r >= 0, cm["qp"][prev_r.clamp(min=0).long()],
+                          slice_qp)
+    return torch.where(has_resid, cm["qp"], prev_qp)
+
+
+def p_decisions_core(cm, slice_qp, *, mbw, mbh):
+    """CABAC path: the decoder-carried QP and the narrow decision dict.
+    Returns (decisions, eff_qp)."""
+    eff_qp = p_effqp_core(cm, slice_qp, mbw=mbw, mbh=mbh)
+    return p_decisions_dict(cm, eff_qp, mbw=mbw, mbh=mbh), eff_qp
+
+
+def p_decisions_dict(cm, eff_qp, *, mbw, mbh):
+    """Decision and level tensors for the host C++ CABAC writer, still on
+    the frame's device. int16 / uint8 are lossless for 8-bit streams and
+    halve what crosses to the host."""
+    n = mbw * mbh
+    dev = cm["qp"].device
+    zig = const(ZIGZAG4_FRAME, dev, torch.int64)
+    i4m = cm["i4_modes"]
+    i16, u8 = torch.int16, torch.uint8
+    return {
+        "skip": cm["skip"], "mvd": cm["mvd"].to(i16),
+        "cbp_luma": cm["cbp_luma"].to(u8),
+        "cbp_chroma": cm["cbp_chroma"].to(u8),
+        "qp": cm["qp"].to(u8),
+        "luma_z": cm["lv"].reshape(n, 16, 16)[:, :, zig].to(i16),
+        "cdc": cm["cdc_blk"].reshape(n, 2, 4).to(i16),
+        "cac_z": cm["cac_blk"].reshape(n, 2, 4, 16)[:, :, :, zig].to(i16),
+        "is_intra": cm["is_intra"].reshape(-1),
+        "i16_mode": cm["i16_mode"].reshape(-1).to(u8),
+        "chroma_mode": cm["chroma_mode"].reshape(-1).to(u8),
+        "luma_dc_z": cm["dc_blk"].reshape(n, 16)[:, zig].to(i16),
+        "part_mode": cm["part_mode"].to(u8),
+        "mvd2": cm["mvd2"].to(i16),
+        "mvd23": cm["mvd23"].to(i16),
+        "is_i4": cm["is_i4_f"],
+        "i4_modes": (i4m.to(u8) if i4m is not None
+                     else torch.zeros((n, 16), dtype=u8, device=dev)),
+        "refidx": cm["refidx"].to(u8),
+    }
+
+
 def p_deblock_core(recon_y, recon_u, recon_v, is_intra, nnz_l, mv, eff_qp,
                    ref_grid=None, *, mbw, mbh, two_refs, a_off, b_off, cqpo):
     """In-loop deblock of a P frame: strengths, then the wavefront."""
@@ -904,7 +988,8 @@ def p_deblock_core(recon_y, recon_u, recon_v, is_intra, nnz_l, mv, eff_qp,
 # -------------------------------------------------------------- pipeline
 def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
                   mbh, cap_words, me_range, deblock, a_off, b_off, cqpo,
-                  decimate, i4, two_refs):
+                  decimate, i4, two_refs, entropy=True, p8x8=True,
+                  trl_tabs=None):
     """One P frame on the planes' device (x264_tpu inter._p_pipeline at
     the bench's settings). refs: the live L0 references, 1 or 2 DPB
     entries (a second one only with two_refs); wp: (w, o) luma weight of
@@ -914,6 +999,11 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     stream as ref1 := ref0 under a traced flag that pins the choice to ref 0
     and drops the te() ref_idx bits; the port searches the one reference
     and passes the same flag as a host bool, with identical results.
+
+    entropy=True codes CAVLC on the device and returns its words and bit
+    count; entropy=False (CABAC) returns the decision dict of
+    `p_decisions_dict` in place of the words, and total_bits None.
+    trl_tabs (frame_ctx_costs) turns the trellis on.
     Returns (words, total_bits, recon planes, stats)."""
     n = mbw * mbh
     ref1_valid = len(refs) == 2
@@ -926,7 +1016,8 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
         if k == 0:
             mvp_rd = mvp_est
         rs.append(p_subpel_core(y, ref["hpel"], mvs, mvp_est, lam, w, o,
-                                me_range=me_range, return_cands=True))
+                                me_range=me_range, return_cands=True,
+                                p8x8=p8x8))
     if ref1_valid:
         (inter_cost, pred_y, mvq, part_mode, mv_parts, refidx,
          cands) = p_me_select(rs[0], rs[1], True)
@@ -950,23 +1041,29 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
         y, u, v, refs[0]["cuv_pad"],
         refs[1]["cuv_pad"] if ref1_valid else None, inter_cost, pred_y, mvq,
         part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
-        use_i4, best_intra, qp_mb, qpc_mb, is_intra_rd, mbw=mbw, mbh=mbh,
-        two_refs=two_refs, decimate=decimate)
+        use_i4, best_intra, qp_mb, qpc_mb, is_intra_rd, trl_tabs, mbw=mbw,
+        mbh=mbh, two_refs=two_refs, decimate=decimate, p8x8=p8x8)
     cm = p_merge_core(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw, mbh=mbh,
                       two_refs=two_refs, i4=i4)
     del xm
     # ---- entropy ----
-    words, total_bits, eff_qp = encode_pframe_entropy_dev(
-        cm["skip"], cm["mvd"], cm["cbp_luma"], cm["cbp_chroma"], cm["qp"],
-        slice_qp, cm["lv"].reshape(n, 16, 4, 4), cm["cdc_blk"],
-        cm["cac_blk"], mbw=mbw, mbh=mbh, cap_words=cap_words,
-        is_intra=cm["is_intra"].reshape(-1),
-        i16_mode=cm["i16_mode"].reshape(-1),
-        chroma_mode=cm["chroma_mode"].reshape(-1), luma_dc=cm["dc_blk"],
-        part_mode=cm["part_mode"], mvd2=cm["mvd2"], mvd23=cm["mvd23"],
-        is_i4=cm["is_i4_f"] if i4 else None,
-        i4_modes=cm["i4_modes"] if i4 else None, refidx=cm["refidx"],
-        two_refs=two_refs, two_refs_live=ref1_valid if two_refs else None)
+    if entropy:
+        words, total_bits, eff_qp = encode_pframe_entropy_dev(
+            cm["skip"], cm["mvd"], cm["cbp_luma"], cm["cbp_chroma"],
+            cm["qp"], slice_qp, cm["lv"].reshape(n, 16, 4, 4),
+            cm["cdc_blk"], cm["cac_blk"], mbw=mbw, mbh=mbh,
+            cap_words=cap_words, is_intra=cm["is_intra"].reshape(-1),
+            i16_mode=cm["i16_mode"].reshape(-1),
+            chroma_mode=cm["chroma_mode"].reshape(-1),
+            luma_dc=cm["dc_blk"], part_mode=cm["part_mode"],
+            mvd2=cm["mvd2"], mvd23=cm["mvd23"],
+            is_i4=cm["is_i4_f"] if i4 else None,
+            i4_modes=cm["i4_modes"] if i4 else None, refidx=cm["refidx"],
+            two_refs=two_refs,
+            two_refs_live=ref1_valid if two_refs else None)
+    else:
+        words, eff_qp = p_decisions_core(cm, slice_qp, mbw=mbw, mbh=mbh)
+        total_bits = None
     # ---- deblock ----
     recon = (cm["recon_y"], cm["recon_u"], cm["recon_v"])
     if deblock:
@@ -985,6 +1082,40 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
 
 
 # ------------------------------------------------------------ frame glue
+def decisions_to_host(decisions, qp_mb):
+    """The decision and level tensors of `p_decisions_dict` and the QP map
+    as numpy arrays: the one device-to-host copy of a CABAC P frame."""
+    d = {k: val.cpu().numpy() for k, val in decisions.items()}
+    return d, _host(qp_mb, np.int32).reshape(-1)
+
+
+def cabac_finalize_pframe(enc, decisions, qp_mb, slice_qp, sh):
+    """Host tail of a CABAC P frame: move the decision and level tensors
+    to the host and run the C++ writer (csrc/cabac.cpp). The writer gets
+    the per-MB QP the encoder chose (qp_mb), not the decoder-carried one:
+    it derives mb_qp_delta itself."""
+    mbw, mbh = enc.mb_w, enc.mb_h
+    n = mbw * mbh
+    d, qp_host = decisions_to_host(decisions, qp_mb)
+    luma = d["luma_z"].astype(np.int16)[:, LUMA4x4_RASTER]  # z-scan order
+    payload = encode_slice_cabac(
+        False, mbw, mbh, slice_qp,
+        d["skip"].astype(np.uint8), d["is_intra"].astype(np.uint8),
+        d["i16_mode"].astype(np.uint8), d["chroma_mode"].astype(np.uint8),
+        d["cbp_luma"], d["cbp_chroma"], qp_host,
+        d["mvd"].astype(np.int16),
+        d["luma_dc_z"].astype(np.int16), luma,
+        d["cdc"].astype(np.int16), d["cac_z"].reshape(n, 8, 16),
+        model=0, mvd1=d["mvd2"].astype(np.int16),
+        part_mode=d["part_mode"].astype(np.uint8),
+        is_i4=d["is_i4"].astype(np.uint8),
+        i4_modes=d["i4_modes"].astype(np.uint8),
+        refidx=d.get("refidx"), n_refs=sh.num_ref_idx_l0_active)
+    sh.cabac_init_idc = 0
+    return finalize_slice_cabac(enc, payload, sh, nal_mod.NAL_SLICE,
+                                nal_mod.NAL_PRIORITY_HIGH)
+
+
 def apply_ref_list_mod(enc, ref, sh):
     """Signal ref_pic_list_modification_l0 when the chosen reference is not
     the decoder's default list0[0], the most recent decoded reference."""
@@ -1005,9 +1136,6 @@ def _unported(enc, pir):
     a = enc.p.analyse
     if pir is not None:
         return "periodic intra refresh is not ported yet (ROADMAP item 12)"
-    if enc.p.cabac:
-        return ("CABAC P frames (and the trellis, which needs CABAC) are "
-                "not ported yet (ROADMAP item 9)")
     if getattr(a, "noise_reduction", 0):
         return "noise reduction is not ported yet (ROADMAP item 12)"
     if a.me_method > 2:
@@ -1021,7 +1149,8 @@ def _unported(enc, pir):
 
 def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
                     pir=None):
-    """Dispatch one P frame (CAVLC). planes: the encoder's padded planes
+    """Dispatch one P frame (CAVLC on the device, or CABAC through the
+    host writer in finalize). planes: the encoder's padded planes
     (`Planes`, whose `host_luma` the weightp fit reads). Returns
     (finalize_fn, retry_fn(qp) -> (finalize, recon), recon_dev, ref_tag)."""
     why = _unported(enc, pir)
@@ -1068,12 +1197,18 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
     materialize = (enc.p.analyse.psnr or enc.p.analyse.ssim
                    or enc.p.dump_yuv or enc.p.full_recon)
     refs = [ref, ref1] if ref1_valid else [ref]
+    cabac = enc.p.cabac
+    # trellis needs the slice-init CABAC flag / level costs, so it runs
+    # under CABAC only
+    use_trellis = bool(enc.p.analyse.trellis) and cabac
 
     def attempt(qp_try):
         qp_mb, qpc_mb = build_qp_maps(enc, y, u, v, qp_try, tree_off)
         # SAD/SATD-domain lambda
         lam = max(1, int(round(2.0 ** ((qp_try - 12) / 6.0))))
         cap_words = (mbw * mbh * cap_bytes_per_mb(qp_try)) // 4
+        trl_tabs = (frame_ctx_costs(False, qp_try, cat=2) if use_trellis
+                    else None)
         words, total_bits, recon, stats = encode_pframe(
             y, u, v, refs, qp_mb, qpc_mb, qp_try, lam, wp, mbw=mbw, mbh=mbh,
             cap_words=cap_words, me_range=me_range,
@@ -1082,16 +1217,22 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
             b_off=enc.p.deblocking_filter_beta * 2,
             cqpo=enc.p.analyse.chroma_qp_offset,
             decimate=enc.p.analyse.dct_decimate,
-            i4=bool(enc.p.analyse.intra & ANALYSE_I4x4), two_refs=two_refs)
+            i4=bool(enc.p.analyse.intra & ANALYSE_I4x4), two_refs=two_refs,
+            entropy=not cabac,
+            # x264_tpu's CABAC writer has no sub_mb_type: no P_8x8 there
+            p8x8=not cabac, trl_tabs=trl_tabs)
         enc._pending_ref_fields = {"mvf": stats["mvf"],
                                    "mvf4": stats["mvf4"],
                                    "inter_mask": stats["inter_mask"]}
 
         def finalize():
             sh.qp = qp_try
-            nals = finalize_slice(enc, words, total_bits, cap_words, sh,
-                                  nal_mod.NAL_SLICE,
-                                  nal_mod.NAL_PRIORITY_HIGH)
+            if cabac:
+                nals = cabac_finalize_pframe(enc, words, qp_mb, qp_try, sh)
+            else:
+                nals = finalize_slice(enc, words, total_bits, cap_words, sh,
+                                      nal_mod.NAL_SLICE,
+                                      nal_mod.NAL_PRIORITY_HIGH)
             rec = ([r.cpu().numpy() for r in recon] if materialize
                    else list(recon))
             enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),

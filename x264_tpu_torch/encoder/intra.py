@@ -1,13 +1,17 @@
-"""Intra (I) frame encoding (x264_tpu/encoder/intra.py), CAVLC path.
+"""Intra (I) frame encoding (x264_tpu/encoder/intra.py).
 
-One pipeline function per frame, on the frame's device:
+One pipeline function per frame and entropy coder, on the frame's device
+(`encode_iframe` for CAVLC, `analyze_iframe` for CABAC):
 
   1. DECIDE: per-MB I16x16 / chroma / I_4x4 mode costs against SOURCE
      neighbours (the two-phase approximation), at a per-MB lambda.
   2. COMMIT: exact reconstruction along MB anti-diagonals
      (ops/commit.commit: the CUDA kernel on a card, commit_ref on the CPU).
-  3. ENTROPY: CAVLC code generation and bit packing
-     (entropy/cavlc_dev.encode_i16x16_frame_dev).
+  3. ENTROPY: CAVLC code generation and bit packing on the device
+     (entropy/cavlc_dev.encode_i16x16_frame_dev), or for CABAC the
+     decoder-carried QP chain and the zigzag packing
+     (`i_stage_pack_cabac`) for the host C++ writer
+     (entropy/cabac_host.encode_slice_cabac, run in finalize).
   4. DEBLOCK: all-intra strengths (ops/deblock.deblock_frame).
 
 The slice header, NAL wrapping and rate control run on the host, through
@@ -22,11 +26,14 @@ import torch
 from ..device import const
 from ..entropy import nal as nal_mod
 from ..entropy.bits import BitWriter, append_bitstring
-from ..entropy.cavlc_dev import encode_i16x16_frame_dev, words_to_bytes
+from ..entropy.cabac_host import encode_slice_cabac
+from ..entropy.cavlc_dev import (LUMA4x4_RASTER, encode_i16x16_frame_dev,
+                                 words_to_bytes)
 from ..entropy.slice_hdr import slice_header_write
 from ..ops import pixel, predict
 from ..ops.commit import _i4_block_avail, commit
 from ..ops.deblock import deblock_frame, intra_strengths
+from ..ops.tables import ZIGZAG4_FRAME
 from ..params import ANALYSE_I4x4
 from .encoder import TYPE_IDR
 from .frame_encode import build_qp_maps
@@ -166,12 +173,10 @@ def decide_modes_i4(y, lam=None):
 
 
 # ---------------------------------------------------------------- pipeline
-def encode_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh, cap_words,
-                  deblock=False, a_off=0, b_off=0, cqpo=0, i4=False):
-    """One I frame on the planes' device: decide -> commit -> CAVLC ->
-    deblock. i4 adds the per-MB I_4x4 candidate (I16x16 vs I_4x4 by SATD
-    plus mode-bit costs at the per-MB lambda).
-    Returns (words, total_bits, recon planes, satd_cost)."""
+def _decide_commit(y, u, v, qp_mb, qpc_mb, *, mbw, mbh, i4):
+    """Mode decision at the per-MB lambda, then the wavefront commit.
+    Returns (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
+    recon); i4_mask / i4_modes are None without i4."""
     lam = mb_lambda(qp_mb)
     i16_mode, chroma_mode, satd_cost, i16_cost = decide_modes_full(
         y, u, v, lam=lam)
@@ -181,6 +186,25 @@ def encode_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh, cap_words,
         i4_mask = i4_cost < i16_cost
     coeffs, recon = commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
                            mbw, mbh, i4_mask=i4_mask, i4_modes=i4_modes)
+    return i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs, recon
+
+
+def _deblock_intra(recon, eff_qp, *, mbw, mbh, a_off, b_off, cqpo):
+    """All-intra in-loop deblock (MB edges strong) at the decoder's QPs."""
+    bs_v, bs_h = intra_strengths(mbw, mbh, recon[0].device)
+    return deblock_frame(*recon, bs_v, bs_h, eff_qp.reshape(mbh, mbw),
+                         mbw=mbw, mbh=mbh, a_off=a_off, b_off=b_off,
+                         chroma_qp_offset=cqpo)
+
+
+def encode_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh, cap_words,
+                  deblock=False, a_off=0, b_off=0, cqpo=0, i4=False):
+    """One CAVLC I frame on the planes' device: decide -> commit -> CAVLC
+    -> deblock. i4 adds the per-MB I_4x4 candidate (I16x16 vs I_4x4 by SATD
+    plus mode-bit costs at the per-MB lambda).
+    Returns (words, total_bits, recon planes, satd_cost)."""
+    (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
+     recon) = _decide_commit(y, u, v, qp_mb, qpc_mb, mbw=mbw, mbh=mbh, i4=i4)
     words, total_bits, eff_qp = encode_i16x16_frame_dev(
         i16_mode.reshape(-1), chroma_mode.reshape(-1), qp_mb.reshape(-1),
         slice_qp, coeffs["dc"], coeffs["ac"],
@@ -190,11 +214,65 @@ def encode_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh, cap_words,
         is_i4=None if i4_mask is None else i4_mask.reshape(-1),
         i4_modes=None if i4_modes is None else i4_modes.reshape(-1, 16))
     if deblock:
-        bs_v, bs_h = intra_strengths(mbw, mbh, y.device)
-        recon = deblock_frame(*recon, bs_v, bs_h, eff_qp.reshape(mbh, mbw),
-                              mbw=mbw, mbh=mbh, a_off=a_off, b_off=b_off,
-                              chroma_qp_offset=cqpo)
+        recon = _deblock_intra(recon, eff_qp, mbw=mbw, mbh=mbh, a_off=a_off,
+                               b_off=b_off, cqpo=cqpo)
     return words, total_bits, recon, satd_cost
+
+
+def i_stage_pack_cabac(coeffs, i4_mask, qp_mb, slice_qp, *, mbw, mbh):
+    """Decoder-carried QP chain and zigzag packing for the host CABAC
+    writer: mb_qp_delta is always coded for I16x16 MBs and only with
+    residual for I_4x4 MBs, so an I_4x4 MB without residual keeps the QP
+    of the last MB that coded one.
+    Returns (dc_z [n,16], ac_z [n,16,16], cdc [n,2,4], cac [n,2,4,16],
+    eff_qp [n])."""
+    n = mbw * mbh
+    dev = qp_mb.device
+    qp_flat = qp_mb.reshape(-1)
+    luma_any = (coeffs["ac"].reshape(n, -1) != 0).any(1)
+    chroma_any = ((coeffs["udc"].reshape(n, -1) != 0).any(1)
+                  | (coeffs["vdc"].reshape(n, -1) != 0).any(1)
+                  | (coeffs["uac"].reshape(n, -1) != 0).any(1)
+                  | (coeffs["vac"].reshape(n, -1) != 0).any(1))
+    has_dqp = (~i4_mask.reshape(-1)) | luma_any | chroma_any
+    idxs = torch.arange(n, dtype=torch.int32, device=dev)
+    last_d = torch.cummax(torch.where(has_dqp, idxs, -1), 0).values
+    prev_d = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
+                        last_d[:-1]])
+    prev_qp = torch.where(prev_d >= 0, qp_flat[prev_d.clamp(min=0).long()],
+                          slice_qp)
+    eff_qp = torch.where(has_dqp, qp_flat, prev_qp)
+    zig = const(ZIGZAG4_FRAME, dev, torch.int64)
+    dc_z = coeffs["dc"].reshape(n, 16)[:, zig]
+    ac_z = coeffs["ac"].reshape(n, 16, 16)[:, :, zig]
+    cdc = torch.stack([coeffs["udc"], coeffs["vdc"]], dim=1).reshape(n, 2, 4)
+    cac = torch.stack([coeffs["uac"], coeffs["vac"]],
+                      dim=1).reshape(n, 2, 4, 16)[:, :, :, zig]
+    return dc_z, ac_z, cdc, cac, eff_qp
+
+
+def analyze_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh,
+                   deblock=False, a_off=0, b_off=0, cqpo=0, i4=False):
+    """One CABAC I frame on the planes' device: decide -> commit -> QP
+    chain and level packing -> deblock (x264_tpu
+    intra.analyze_iframe_staged). Returns (i16_mode [n], chroma_mode [n],
+    dc_z, ac_z, cdc, cac, recon planes, satd_cost, is_i4 [n],
+    i4_modes [n, 16])."""
+    n = mbw * mbh
+    (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
+     recon) = _decide_commit(y, u, v, qp_mb, qpc_mb, mbw=mbw, mbh=mbh, i4=i4)
+    if not i4:
+        i4_mask = torch.zeros((mbh, mbw), dtype=torch.bool, device=y.device)
+        i4_modes = torch.zeros((mbh, mbw, 16), dtype=torch.int32,
+                               device=y.device)
+    dc_z, ac_z, cdc, cac, eff_qp = i_stage_pack_cabac(
+        coeffs, i4_mask, qp_mb, slice_qp, mbw=mbw, mbh=mbh)
+    if deblock:
+        recon = _deblock_intra(recon, eff_qp, mbw=mbw, mbh=mbh, a_off=a_off,
+                               b_off=b_off, cqpo=cqpo)
+    return (i16_mode.reshape(-1), chroma_mode.reshape(-1), dc_z, ac_z, cdc,
+            cac, recon, satd_cost, i4_mask.reshape(-1),
+            i4_modes.reshape(n, 16))
 
 
 # ------------------------------------------------------------- frame entry
@@ -244,12 +322,58 @@ def finalize_slice(enc, words, total_bits, cap_words, sh, nal_type,
     return [nal_mod.nal_encode(nal_type, ref_idc, bw.getvalue())]
 
 
+def finalize_slice_cabac(enc, payload: bytes, sh, nal_type, ref_idc):
+    """Slice header + cabac_alignment_one_bits + CABAC payload -> NAL."""
+    bw = slice_header_write(sh, ref_idc)
+    bw.byte_align_one()
+    bw.extend_bytes(payload)
+    return [nal_mod.nal_encode(nal_type, ref_idc, bw.getvalue())]
+
+
+def _host(t, dtype):
+    """A device tensor as a numpy array of `dtype` (one copy to the host)."""
+    return t.cpu().numpy().astype(dtype, copy=False)
+
+
+def cabac_finalize_iframe(enc, mode_m, mode_c, dc_z, ac_z, cdc, cac,
+                          qp_mb, slice_qp, sh, nal_type, ref_idc, is_i4,
+                          i4_modes):
+    """Host tail of a CABAC I frame: move the levels to the host, run the
+    C++ writer. The writer gets the per-MB QP the encoder chose (qp_mb),
+    not the decoder-carried one: it derives mb_qp_delta itself."""
+    mbw, mbh = enc.mb_w, enc.mb_h
+    n = mbw * mbh
+    # blocks raster in tensors -> z-scan coding order for the writer
+    ac = _host(ac_z, np.int16)[:, LUMA4x4_RASTER]
+    cacn = _host(cac, np.int16)
+    cdcn = _host(cdc, np.int16)
+    cbp_luma = np.where((ac[:, :, 1:] != 0).any(axis=(1, 2)), 15, 0)
+    is_i4 = _host(is_i4, np.uint8)
+    # I4 MBs: per-8x8-quad cbp over the full 16-coeff blocks
+    # (z-scan groups 4 consecutive blocks per quad)
+    quad_nz = (ac != 0).any(axis=2).reshape(n, 4, 4).any(axis=2)
+    cbp_i4 = (quad_nz.astype(np.int32) << np.arange(4)[None, :]).sum(axis=1)
+    cbp_luma = np.where(is_i4 > 0, cbp_i4, cbp_luma)
+    any_cac = (cacn[:, :, :, 1:] != 0).any(axis=(1, 2, 3))
+    any_cdc = (cdcn != 0).any(axis=(1, 2))
+    cbp_chroma = np.where(any_cac, 2, np.where(any_cdc, 1, 0))
+    payload = encode_slice_cabac(
+        True, mbw, mbh, slice_qp,
+        np.zeros(n, np.uint8), np.ones(n, np.uint8),
+        _host(mode_m, np.int32), _host(mode_c, np.int32),
+        cbp_luma, cbp_chroma, _host(qp_mb, np.int32).reshape(-1),
+        np.zeros((n, 2), np.int16),
+        _host(dc_z, np.int16), ac, cdcn,
+        cacn.reshape(n, 8, 16),
+        is_i4=is_i4, i4_modes=_host(i4_modes, np.uint8))
+    return finalize_slice_cabac(enc, payload, sh, nal_type, ref_idc)
+
+
 def dispatch_iframe(enc, planes, ftype, qp, tree_off=None):
-    """Dispatch a full I frame (CAVLC). Returns (finalize_fn,
-    retry_fn(qp) -> (finalize_fn, recon), recon_device, None)."""
-    if enc.p.cabac:
-        raise NotImplementedError(
-            "CABAC I frames are not ported yet (ROADMAP item 9)")
+    """Dispatch a full I frame: the device pipeline now, the host tail
+    (CAVLC payload fetch, or the C++ CABAC writer) in finalize. Returns
+    (finalize_fn, retry_fn(qp) -> (finalize_fn, recon), recon_device,
+    None)."""
     mbw, mbh = enc.mb_w, enc.mb_h
     y, u, v = planes
     sh = enc._slice_header(ftype, qp)
@@ -257,25 +381,36 @@ def dispatch_iframe(enc, planes, ftype, qp, tree_off=None):
                 else nal_mod.NAL_SLICE)
     materialize = (enc.p.analyse.psnr or enc.p.analyse.ssim
                    or enc.p.dump_yuv or enc.p.full_recon)
+    cabac = enc.p.cabac
 
     def attempt(qp_try):
         qp_mb, qpc_mb = build_qp_maps(enc, y, u, v, qp_try, tree_off)
-        cap_words = (mbw * mbh * cap_bytes_per_mb(qp_try)) // 4
-        words, total_bits, recon, satd_cost = encode_iframe(
-            y, u, v, qp_mb, qpc_mb, qp_try, mbw=mbw, mbh=mbh,
-            cap_words=cap_words, deblock=enc.p.deblocking_filter,
-            a_off=enc.p.deblocking_filter_alphac0 * 2,
-            b_off=enc.p.deblocking_filter_beta * 2,
-            cqpo=enc.p.analyse.chroma_qp_offset,
-            i4=bool(enc.p.analyse.intra & ANALYSE_I4x4))
+        kw = dict(mbw=mbw, mbh=mbh, deblock=enc.p.deblocking_filter,
+                  a_off=enc.p.deblocking_filter_alphac0 * 2,
+                  b_off=enc.p.deblocking_filter_beta * 2,
+                  cqpo=enc.p.analyse.chroma_qp_offset,
+                  i4=bool(enc.p.analyse.intra & ANALYSE_I4x4))
+        if cabac:
+            (mode_m, mode_c, dc_z, ac_z, cdc, cac, recon, satd_cost, is_i4,
+             i4_modes) = analyze_iframe(y, u, v, qp_mb, qpc_mb, qp_try, **kw)
+        else:
+            cap_words = (mbw * mbh * cap_bytes_per_mb(qp_try)) // 4
+            words, total_bits, recon, satd_cost = encode_iframe(
+                y, u, v, qp_mb, qpc_mb, qp_try, cap_words=cap_words, **kw)
         enc._pending_ref_fields = {
             "mvf": np.zeros((mbh, mbw, 2), np.int32),
             "inter_mask": np.zeros((mbh, mbw), bool)}
 
         def finalize():
             sh.qp = qp_try
-            nals = finalize_slice(enc, words, total_bits, cap_words, sh,
-                                  nal_type, nal_mod.NAL_PRIORITY_HIGHEST)
+            if cabac:
+                nals = cabac_finalize_iframe(
+                    enc, mode_m, mode_c, dc_z, ac_z, cdc, cac, qp_mb, qp_try,
+                    sh, nal_type, nal_mod.NAL_PRIORITY_HIGHEST, is_i4,
+                    i4_modes)
+            else:
+                nals = finalize_slice(enc, words, total_bits, cap_words, sh,
+                                      nal_type, nal_mod.NAL_PRIORITY_HIGHEST)
             rec = ([r.cpu().numpy() for r in recon] if materialize
                    else list(recon))
             enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),

@@ -7,6 +7,7 @@ integer matmul, and a butterfly is the same linear map.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..device import const
@@ -86,3 +87,10 @@ def zigzag4(blocks):
     """Scan [..., 4, 4] -> [..., 16] in zig-zag order."""
     flat = blocks.reshape(blocks.shape[:-2] + (16,))
     return flat[..., const(tables.ZIGZAG4_FRAME, blocks.device, torch.int64)]
+
+
+def izigzag4(scans):
+    """Inverse of zigzag4: [..., 16] in zig-zag order -> [..., 4, 4]."""
+    inv = np.argsort(tables.ZIGZAG4_FRAME)
+    flat = scans[..., const(inv, scans.device, torch.int64)]
+    return flat.reshape(scans.shape[:-1] + (4, 4))
