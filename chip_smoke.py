@@ -34,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
      through Encoder.encode on CUDA, with the kernel's launch count reset
      just before and read just after (one launch per encoded frame);
      frame 0 must match a CPU encode of the same frame byte for byte;
-  5. the P main path (what bench.py times): 5 frames of the same clip,
+  5. the P main path (what bench.py times): 4 frames of the same clip,
      IPPP at preset medium (2 references, weightp, partitions, subme 7,
      I_4x4 and intra in P), CQP 26, CAVLC, through Encoder.encode on
      CUDA, the launch count reset just before and read just after (one
@@ -45,14 +45,37 @@ Phases (any failure exits non-zero and prints no result line):
      just before and read just after (one launch per frame); bytes beside
      phase 5's CAVLC bytes for the same frames; frame 0 must match a CPU
      encode of the same frame byte for byte;
+  8. the default path: 8 frames of the same clip at
+     param_default_preset("medium") with only the size set (CRF 23, CABAC,
+     bframe 3, MB-tree, AQ, trellis, 2 references, weightp), all decided
+     at the flush (the MB-tree window is 24 frames deep), through
+     Encoder.encode on CUDA. The adaptive B-run decision is asked first
+     (the lookahead alone): if it would code no B frame on this clip, the
+     phase runs with bframe_adaptive 0 and says so. The launch count is
+     reset just before and read just after: one commit launch per I or P
+     frame, none for a B frame (it has no intra MB). At least one frame
+     must be B. Frame 0 must match a CPU encode of frame 0 (the CPU
+     encoder's lookahead sees all 8 frames) byte for byte; tools/refdec.py
+     decodes the whole stream to the reconstructions, which takes
+     minutes: the phase runs before phase 3, the decoder in a process of
+     its own beside phase 3's checks (they time nothing), and phase 4
+     waits for it, so every fps and stage time is taken with nothing
+     else running;
   6. print fps, the kernels' and the plain version's time per frame,
      per-stage breakdowns of a 1080p I frame and of a 1080p P frame with
      two references (the P path's own stage functions timed while
      Encoder.encode runs the clip again; its stream must equal phase
      5's), the same breakdown for the CABAC configuration (with the
      trellis, the decision packing, the device-to-host copy and the C++
-     writer; its stream must equal phase 7's), a P frame's device time per stage and device idle share
-     under torch.profiler, the kernel line, the card's name and power
+     writer; its stream must equal phase 7's), the stages of a B frame of
+     the default path (the two exhaustive searches, the two quarter-pel
+     refines, direct, luma transform and trellis, chroma, decisions,
+     deblock, the CABAC writer) and of its lookahead, timed the same way
+     while the clip is encoded again (its stream must equal phase 8's), a
+     B frame's device time per stage and device idle share under
+     torch.profiler (one trace: the P paths' traces were dropped for the
+     run's time, their device columns had agreed within 1% between the two
+     earlier runs that took them), the kernel line, the card's name and power
      limit, and the result; fail if `jax` or any module of the
      `x264_tpu` package entered the process.
 """
@@ -64,9 +87,10 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-N_FRAMES = 3          # all-intra path
-N_P_FRAMES = 5        # IPPP main path: IDR + 4 P
+N_FRAMES = 2          # all-intra path
+N_P_FRAMES = 4        # IPPP main path: IDR + 3 P (frames 2-3: two refs)
 N_CABAC_FRAMES = 4    # CABAC main path: IDR + 3 P (frames 2-3: two refs)
+N_DEFAULT_FRAMES = 8  # default path: fewer than the MB-tree window's 24
 QP = 26
 
 
@@ -131,6 +155,45 @@ def crf_aq_params(w, h, rf=23.0):
     p.rc.rf_constant = rf
     p.rc.mb_tree = False
     return p
+
+
+def ibbp_params(w, h, cabac, qp=QP):
+    """Preset medium with a fixed run of 2 B frames (bframe_adaptive 0,
+    spatial direct), CQP, CAVLC or CABAC."""
+    p = intra_params(w, h, qp)
+    p.keyint_max = 250
+    p.bframe = 2
+    p.bframe_adaptive = 0
+    p.cabac = cabac
+    return p
+
+
+def default_params(w, h):
+    """param_default_preset("medium") with only the size set: CRF 23,
+    CABAC, bframe 3 with the fast adaptive B-run decision, MB-tree, AQ."""
+    from x264_tpu_torch import param_default_preset
+    p = param_default_preset("medium")
+    p.width, p.height = w, h
+    return p
+
+
+def decided_types(params, frames, dev):
+    """The frame types (coding order) the lookahead of an Encoder with
+    `params` decides for `frames`, all pushed and then flushed: the
+    lookahead alone, nothing is encoded."""
+    from x264_tpu_torch.encoder.encoder import TYPE_IDR, Encoder, Picture
+    enc = Encoder(params, device=dev)
+    for i, f in enumerate(frames):
+        enc._lookahead.push(enc._pad_to_mb(f), Picture(f, pts=i), i)
+    types, keyframe = [], -(1 << 30)
+    while True:
+        decided = enc._lookahead.decide(keyframe, True)
+        if not decided:
+            return types
+        for entry, ftype, _, _ in decided:
+            if ftype == TYPE_IDR:
+                keyframe = entry["idx"]
+            types.append(ftype)
 
 
 def moving_frames(n, w, h, seed=0):
@@ -319,22 +382,36 @@ def commit_bound(args, kw, got):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def refdec_decode(stream, w, h):
-    """Decode an Annex-B stream with tools/refdec.py -> [(y, u, v)]. The
-    decoder reads x264_tpu's spec tables, so it runs in a process of its
-    own and this one imports nothing of x264_tpu."""
-    import numpy as np
+def refdec_start(stream, tag="s"):
+    """Start tools/refdec.py on an Annex-B stream in a process of its own
+    (the decoder reads x264_tpu's spec tables, and this process imports
+    nothing of x264_tpu). Returns what refdec_finish takes."""
     work = os.path.join(ROOT, "x264_tpu_torch", "_build", "smoke")
     os.makedirs(work, exist_ok=True)
-    src, raw = os.path.join(work, "s.264"), os.path.join(work, "s.yuv")
+    src = os.path.join(work, tag + ".264")
+    raw = os.path.join(work, tag + ".yuv")
     with open(src, "wb") as f:
         f.write(stream)
-    r = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
-                                                     "refdec.py"), src, raw],
-                       capture_output=True, text=True, cwd=ROOT, timeout=600,
-                       env=dict(os.environ, PYTHONPATH=ROOT))
-    if r.returncode != 0:
-        fail("refdec failed: " + r.stderr[-2000:])
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "tools", "refdec.py"), src, raw],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT))
+    return proc, raw, time.time()
+
+
+def refdec_finish(job, w, h, timeout=600):
+    """Wait for a refdec_start job -> ([(y, u, v)] in coding order, the
+    seconds it took)."""
+    import numpy as np
+    proc, raw, t0 = job
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"refdec did not finish within {timeout} s")
+    if proc.returncode != 0:
+        fail("refdec failed: " + err[-2000:])
     data = np.fromfile(raw, np.uint8)
     n = w * h * 3 // 2
     frames = []
@@ -343,7 +420,20 @@ def refdec_decode(stream, w, h):
         frames.append((fr[:w * h].reshape(h, w),
                        fr[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
                        fr[w * h * 5 // 4:].reshape(h // 2, w // 2)))
-    return frames
+    return frames, time.time() - t0
+
+
+def refdec_decode(stream, w, h):
+    """Decode an Annex-B stream with tools/refdec.py -> [(y, u, v)]."""
+    return refdec_finish(refdec_start(stream), w, h)[0]
+
+
+def decodes_to(decoded, outs):
+    """refdec's frames (coding order) equal the encoder's reconstructions."""
+    import numpy as np
+    return len(decoded) == len(outs) and all(
+        np.array_equal(d[c], o.recon[c])
+        for d, o in zip(decoded, outs) for c in range(3))
 
 
 def check_clean_imports():
@@ -439,8 +529,9 @@ def main():
              "card")
     sys.path.insert(0, ROOT)
     from bench import synth_clip
-    from x264_tpu_torch.encoder.encoder import (TYPE_IDR, TYPE_P, Encoder,
-                                                Picture)
+    from x264_tpu_torch.encoder.encoder import (TYPE_B, TYPE_IDR, TYPE_P,
+                                                Encoder, Picture,
+                                                annexb_bytes)
     from x264_tpu_torch.ops import commit as C
 
     dev = torch.device("cuda")
@@ -485,7 +576,7 @@ def main():
 
     # ---- phase 2: kernels vs plain version on the card ----
     mark("1 build")
-    clip = synth_clip(N_P_FRAMES)
+    clip = synth_clip(N_DEFAULT_FRAMES)
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
     rng = np.random.default_rng(5)
@@ -604,8 +695,82 @@ def main():
             f"({grid or 'all'} blocks): "
             + json.dumps(kernel_stats(torch, C, args, kw, grid)))
 
-    # ---- phase 3: 64x48 stream, CUDA vs CPU, refdec ----
+    # ---- phase 8: the default path, 8 x 1080p with B frames. It runs
+    # before phase 3: refdec, started on its stream in a process of its
+    # own, takes minutes, runs beside phase 3's checks, which time
+    # nothing, and is waited for before phase 4, so that every fps and
+    # every stage time is taken with nothing else running ----
     mark("2 mixed kernel on a real P frame, timings, counters")
+    p8 = default_params(1920, 1080)
+    clip8 = clip[:N_DEFAULT_FRAMES]
+    adaptive_types = decided_types(p8, clip8, dev)
+    if TYPE_B in adaptive_types:
+        log(f"phase 8: the adaptive B-run decision codes {adaptive_types}")
+    else:
+        p8.bframe_adaptive = 0
+        log(f"phase 8: the adaptive B-run decision (B_ADAPT_FAST) codes no "
+            f"B frame on this clip ({adaptive_types}): the phase runs with "
+            f"bframe_adaptive = 0, everything else at its default")
+    p8.analyse.psnr = True
+    enc8 = Encoder(p8, device=dev)
+    torch.cuda.synchronize()
+    C.commit.launches = 0
+    t0 = time.time()
+    stream8, outs8 = encode_stream(enc8, clip8, Picture)
+    torch.cuda.synchronize()
+    wall8 = time.time() - t0
+    launches_d = C.commit.launches
+    refdec8 = refdec_start(stream8, "default")      # read before phase 4
+    types8 = [o.i_type for o in outs8]
+    n_ip = sum(t != TYPE_B for t in types8)
+    log(f"phase 8 default path: {len(outs8)} frames, types {types8} (coding "
+        f"order), pts {[o.pts for o in outs8]}, {len(stream8)} bytes, bytes "
+        f"by type {enc8.stats['bytes_by_type']}, bytes per frame "
+        f"{frame_bytes(stream8)}, QPs {[o.qp for o in outs8]}, commit "
+        f"launches {launches_d} (I + P frames: {n_ip}), B MBs "
+        f"{enc8.stats['mb'].get('B')} (direct counts the skipped MBs too), "
+        f"P MBs {enc8.stats['mb']['P']}, weightp frames "
+        f"{enc8.stats.get('weightp_frames', 0)}")
+    if len(outs8) != N_DEFAULT_FRAMES or types8[0] != TYPE_IDR:
+        fail(f"default path: {len(outs8)} frames, types {types8}")
+    if TYPE_B not in types8:
+        fail(f"default path: no B frame among {types8}")
+    # CRF sets the QPs, so a re-encode cannot be read off them: the path
+    # must simply make one launch per I or P frame and none per B frame
+    if launches_d != n_ip:
+        fail(f"commit launches {launches_d} != {n_ip} I and P frames")
+    for o in outs8:
+        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
+        if shapes != [(1080, 1920), (540, 960), (540, 960)]:
+            fail(f"recon shapes {shapes}")
+        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
+            fail(f"PSNR {o.psnr} (expected finite and > 30 dB)")
+    log("phase 8 PSNR Y/U/V per frame: "
+        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
+                   for o in outs8))
+    # the CPU port's frame 0: its lookahead takes all 8 frames (MB-tree
+    # reaches frame 0 from them), then only the IDR is dispatched
+    pc8 = default_params(1920, 1080)
+    pc8.bframe_adaptive = p8.bframe_adaptive
+    enc_c = Encoder(pc8, device="cpu")
+    t0 = time.time()
+    s_cpu8 = annexb_bytes(enc_c.headers())
+    for i, f in enumerate(clip8):
+        enc_c.encode(Picture(f, pts=i))
+    enc_c._pipe_depth = 0              # the flush call dispatches one frame
+    nals, out = enc_c.encode(None)
+    s_cpu8 += annexb_bytes(nals)
+    t_cpu8 = time.time() - t0
+    if out is None or out.i_type != TYPE_IDR:
+        fail("the CPU port's first default-path picture is no IDR")
+    if not stream8.startswith(s_cpu8):
+        fail("1080p default frame 0: CUDA stream differs from the CPU port's")
+    log(f"phase 8 1080p default frame 0: CUDA stream == CPU stream "
+        f"({len(s_cpu8)} bytes with the headers, QP {out.qp}; CPU "
+        f"{t_cpu8:.1f} s with the lookahead of 8 frames)")
+
+    # ---- phase 3: 64x48 stream, CUDA vs CPU, refdec ----
+    mark("8 default path (B frames, MB-tree) and its CPU frame 0")
     yy, xx = np.mgrid[0:48, 0:64]
     frames3 = []
     for i in range(3):
@@ -701,8 +866,64 @@ def main():
             f"{enc_g.stats['mb']['P']}; CUDA {t_gpu:.1f} s, CPU "
             f"{t_cpu:.1f} s){note}")
 
-    # ---- phase 4: the all-intra path, 3 x 1080p through Encoder.encode --
     mark("3 CUDA vs CPU streams, CABAC and CRF+AQ")
+    # B frames: IBBP with a fixed run, CAVLC and CABAC, then the defaults
+    ibbp = [TYPE_IDR, TYPE_P, TYPE_B, TYPE_B, TYPE_P, TYPE_B, TYPE_B]
+    mov28 = moving_frames(28, 64, 48, seed=3)
+    decoding = []
+    for label, make, frames_c, w, h, want in (
+            ("64x48 IBBP CAVLC x7", lambda w, h: ibbp_params(w, h, False),
+             moving_frames(7, 64, 48), 64, 48, ibbp),
+            ("64x48 IBBP CABAC x7", lambda w, h: ibbp_params(w, h, True),
+             moving_frames(7, 64, 48), 64, 48, ibbp),
+            ("640x360 IBBP CAVLC x4", lambda w, h: ibbp_params(w, h, False),
+             mid, 640, 360, ibbp[:4]),
+            ("640x360 IBBP CABAC x4", lambda w, h: ibbp_params(w, h, True),
+             mid, 640, 360, ibbp[:4]),
+            ("64x48 defaults (CRF, MB-tree, AQ, adaptive B) x28",
+             default_params, mov28, 64, 48, None)):
+        dec = w == 64
+        pc = make(w, h)
+        pc.full_recon = dec
+        enc_g = Encoder(pc, device=dev)
+        t0 = time.time()
+        s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture)
+        t_gpu = time.time() - t0
+        t0 = time.time()
+        s_cpu, _ = encode_stream(Encoder(make(w, h), device="cpu"), frames_c,
+                                 Picture)
+        t_cpu = time.time() - t0
+        types_b = [o.i_type for o in o_gpu]
+        if len(o_gpu) != len(frames_c) or (want and types_b != want) \
+                or TYPE_B not in types_b:
+            fail(f"{label}: frame types {types_b}")
+        if s_gpu != s_cpu:
+            fail(f"{label}: CUDA and CPU streams differ")
+        if dec:             # decoded beside the configurations that follow
+            decoding.append((label, refdec_start(s_gpu, f"b{len(decoding)}"),
+                             o_gpu))
+        log(f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
+            f"bytes, types {types_b}, QPs {[o.qp for o in o_gpu]}, B MBs "
+            f"{enc_g.stats['mb']['B']}; CUDA {t_gpu:.1f} s, CPU "
+            f"{t_cpu:.1f} s)")
+    for label, job, o_gpu in decoding:
+        if not decodes_to(refdec_finish(job, 64, 48)[0], o_gpu):
+            fail(f"{label}: refdec does not decode the CUDA stream to its "
+                 f"recon")
+        log(f"phase 3 {label}: refdec decodes the CUDA stream to the CUDA "
+            f"reconstruction")
+
+    mark("3 CUDA vs CPU streams, B frames and the defaults")
+    decoded8, refdec_s = refdec_finish(refdec8, 1920, 1080, timeout=900)
+    if not decodes_to(decoded8, outs8):
+        fail("refdec does not decode the default path's stream to its "
+             "reconstructions")
+    log(f"phase 8 refdec decodes the default path's stream ({len(decoded8)} "
+        f"frames) to the CUDA reconstructions ({refdec_s:.1f} s, beside "
+        f"phase 3)")
+
+    # ---- phase 4: the all-intra path, 2 x 1080p through Encoder.encode --
+    mark("8 refdec of the default path, the wait that is left")
     p4 = intra_params(1920, 1080)
     p4.analyse.psnr = True
     enc = Encoder(p4, device=dev)
@@ -739,7 +960,7 @@ def main():
     log(f"phase 4 1080p frame 0: CUDA stream == CPU stream "
         f"({len(s_cpu1)} bytes with the headers)")
 
-    # ---- phase 5: the P main path, IDR + 4 P at 1080p ----
+    # ---- phase 5: the P main path, IDR + 3 P at 1080p ----
     mark("4 all-intra path and its CPU frame 0")
     p5 = ippp_params(1920, 1080)
     p5.analyse.psnr = True
@@ -829,43 +1050,52 @@ def main():
     mark("7 IPPP CABAC path and its CPU frame 0")
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
                              qp_i)
-    p_stages, prof, stream6 = p_stage_breakdown(torch, p5, clip, dev,
-                                                P_TIMED)
+    p_stages, stream6 = p_stage_breakdown(torch, p5, clip[:N_P_FRAMES], dev,
+                                          P_TIMED)
     if stream6 != stream5:
         fail("the timed IPPP encode's stream differs from phase 5's")
     mark("6 I and CAVLC P stage breakdowns")
-    c_stages, c_prof, stream8 = p_stage_breakdown(
+    c_stages, stream9 = p_stage_breakdown(
         torch, p7, clip[:N_CABAC_FRAMES], dev, CABAC_TIMED)
-    if stream8 != stream7:
+    if stream9 != stream7:
         fail("the timed CABAC encode's stream differs from phase 7's")
     mark("6 CABAC P stage breakdown")
+    b_stages, b_prof, stream10 = b_stage_breakdown(torch, p8, clip8, dev)
+    if stream10 != stream8:
+        fail("the timed default-path encode's stream differs from phase 8's")
+    mark("6 B stage breakdown and trace")
     fps = N_FRAMES / wall
     fps5 = N_P_FRAMES / wall5
     fps7 = N_CABAC_FRAMES / wall7
+    fps8 = N_DEFAULT_FRAMES / wall8
     log(f"phase 6 fps ({N_FRAMES} x 1080p all-intra, Encoder.encode, host "
         f"clock, first frame included): {fps:.4f} ({wall:.3f} s)")
     log(f"phase 6 fps ({N_P_FRAMES} x 1080p IPPP, Encoder.encode, host "
         f"clock, first frame included): {fps5:.4f} ({wall5:.3f} s)")
     log(f"phase 6 fps ({N_CABAC_FRAMES} x 1080p IPPP CABAC, Encoder.encode, "
         f"host clock, first frame included): {fps7:.4f} ({wall7:.3f} s)")
+    log(f"phase 6 fps ({N_DEFAULT_FRAMES} x 1080p defaults with B frames, "
+        f"Encoder.encode, host clock, lookahead and first frame included): "
+        f"{fps8:.4f} ({wall8:.3f} s)")
     log("phase 6 stages ms per 1080p I frame (host clock, synchronised): "
         + json.dumps(stages))
     log("phase 6 stages ms per 1080p P frame, two references (host clock, "
-        "synchronised; the Encoder.encode calls that dispatch P frames 2-3 "
-        "and finalize 1-2; its stream == phase 5's): "
+        "synchronised; the Encoder.encode call that dispatches P frame 2 "
+        "and finalizes 1; its stream == phase 5's): "
         + json.dumps(p_stages))
-    log("phase 6 1080p P frame under torch.profiler (the encode call that "
-        "dispatches P frame 4 and finalizes 3): " + (
-        json.dumps(prof) if prof else "the profiler saw no device time "
-        "(device idle share not measured)"))
     log("phase 6 stages ms per 1080p CABAC P frame, two references (host "
         "clock, synchronised; the Encoder.encode call that dispatches P "
         "frame 2 and finalizes 1; its stream == phase 7's): "
         + json.dumps(c_stages))
-    log("phase 6 1080p CABAC P frame under torch.profiler (the encode call "
-        "that dispatches P frame 3 and finalizes 2): " + (
-        json.dumps(c_prof) if c_prof else "the profiler saw no device time "
-        "(device idle share not measured)"))
+    log("phase 6 stages ms per 1080p B frame of the default path (host "
+        "clock, synchronised, over every B frame of the clip; the lookahead "
+        "stages are sums over the clip's one decision; its stream == phase "
+        "8's): " + json.dumps(b_stages))
+    log("phase 6 1080p B frame under torch.profiler (the encode call that "
+        "dispatches the clip's last B frame and finalizes an earlier "
+        "frame): " + (
+        json.dumps(b_prof) + ("" if b_prof["device_ops"] else " (the "
+        "profiler saw no device time: device idle share not measured)")))
     log("phase 6 host seconds by phase: " + json.dumps(phase_seconds()))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -880,6 +1110,7 @@ def main():
         "bound_by": bound_by, "library_ms": None, "earlier_ms": e_ms,
         "launches_all_intra_path": launches,
         "launches_cabac_path": launches_c,
+        "launches_default_path": launches_d,
         "mixed_p_frame_ms": mixed_ms, "mixed_p_frame_plain_ms":
         mixed_plain_ms, "mixed_p_frame_bound_ms": m_bound_ms,
         "mixed_p_frame_bound_by": m_bound_by}]}))
@@ -971,16 +1202,17 @@ def captured_commit(enc, frame, idx):
 
 
 class StageTimer:
-    """Times the stages of the P path while Encoder.encode runs it. Each
-    stage function below is a module attribute that the pipeline looks
-    up when it calls it (and the encoder's DPB push a method of `enc`):
+    """Times the stages of a path while Encoder.encode runs it. Each
+    stage function in `hooks` (module, attribute, stage name) is a module
+    attribute that the pipeline looks up when it calls it (and the
+    encoder's DPB push a method of `enc`):
     inside the `with` block each is wrapped so that every call is
     synchronised before and after, and its host-clock time less that of
     the stages it calls (the commit inside the merge) goes to its stage.
     With `ranges`, every call also runs in a torch.profiler range
     "stage:<name>"."""
 
-    HOOKS = (("lookahead", "_search_pair", "lookahead_search"),
+    P_HOOKS = (("lookahead", "_search_pair", "lookahead_search"),
              ("inter", "p_fullpel_core", "fullpel"),
              ("inter", "p_subpel_core", "subpel"),
              ("inter", "p_me_select", "subpel"),
@@ -1000,14 +1232,34 @@ class StageTimer:
              ("inter", "decisions_to_host", "decisions_to_host"),
              ("inter", "encode_slice_cabac", "cabac_writer"),
              ("inter", "cabac_finalize_pframe", "cabac_finalize"))
+    # a B frame's stages (encoder/bframe.py), and the lookahead's, which
+    # with MB-tree decides the whole clip in one call
+    B_HOOKS = (("bframe", "dispatch_bframe", "b_dispatch_rest"),
+               ("bframe", "motion_search", "esa"),
+               ("bframe", "subpel_refine_mc", "subpel"),
+               ("bframe", "b_direct_core", "direct"),
+               ("bframe", "b_luma_core", "luma_xfrm"),
+               ("bframe", "trellis_4x4", "trellis"),
+               ("bframe", "b_chroma_core", "chroma"),
+               ("bframe", "b_decisions_core", "decisions"),
+               ("bframe", "b_deblock_core", "deblock"),
+               ("bframe", "decisions_to_host", "decisions_to_host"),
+               ("bframe", "encode_slice_cabac", "cabac_writer"),
+               ("bframe", "cabac_finalize_bframe", "cabac_finalize"),
+               ("lookahead", "_search_pair", "lookahead_search"),
+               ("lookahead", "_bidir_cost", "lookahead_bidir"),
+               ("lookahead", "_mbtree_propagate", "mbtree_propagate"),
+               ("lookahead", "_mbtree_finish", "mbtree_finish"))
 
-    def __init__(self, torch, enc, ranges=False):
-        from x264_tpu_torch.encoder import inter, lookahead
-        mods = {"inter": inter, "lookahead": lookahead}
+    def __init__(self, torch, enc, ranges=False, hooks=P_HOOKS,
+                 dpb_push=True):
+        from x264_tpu_torch.encoder import bframe, inter, lookahead
+        mods = {"inter": inter, "lookahead": lookahead, "bframe": bframe}
         self.torch, self.ranges = torch, ranges
         self.ms, self.calls, self._inner = {}, {}, []
-        self._hooks = [(mods[m], attr, stage) for m, attr, stage in self.HOOKS]
-        self._hooks.append((enc, "_dpb_push_entry", "dpb_push"))
+        self._hooks = [(mods[m], attr, stage) for m, attr, stage in hooks]
+        if dpb_push:
+            self._hooks.append((enc, "_dpb_push_entry", "dpb_push"))
 
     def _wrap(self, fn, stage):
         import contextlib
@@ -1051,7 +1303,7 @@ class StageTimer:
         return False
 
 
-P_TIMED = (3, 4)        # encode calls of clip frames 3-4: P 2-3 dispatched
+P_TIMED = (3,)          # the encode call of clip frame 3: P 2 dispatched
 CABAC_TIMED = (3,)      # of the 4-frame CABAC clip: P 2 dispatched
 
 
@@ -1074,85 +1326,157 @@ def p_stage_breakdown(torch, params, clip, dev, timed_calls):
     two references: a fresh encoder takes the IPPP clip; the calls that
     take the frames `timed_calls` (each dispatches the P frame before it,
     which searches two references, and finalizes the one before that) run
-    under a StageTimer; the first flush call (the last P frame
-    dispatched, the one before it finalized) runs under torch.profiler
-    (p_device_profile). Returns (ms per frame by stage, the profile, the
-    whole stream)."""
+    under a StageTimer. Returns (ms per frame by stage, the whole
+    stream)."""
     from x264_tpu_torch.encoder.encoder import Encoder, Picture, annexb_bytes
     enc = Encoder(params, device=dev)
     stream = annexb_bytes(enc.headers())
     timer = StageTimer(torch, enc)
     wall = 0.0
-    for i, frame in enumerate(clip):
-        if i in timed_calls:
-            with timer:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                nals, _ = enc.encode(Picture(frame, pts=i))
-                torch.cuda.synchronize()
-                wall += (time.perf_counter() - t0) * 1e3
-        else:
-            nals, _ = enc.encode(Picture(frame, pts=i))
-        stream += annexb_bytes(nals)
-    prof, nals = p_device_profile(torch, enc)
-    stream += annexb_bytes(nals)
-    while True:
-        nals, out = enc.encode(None)
-        stream += annexb_bytes(nals)
-        if out is None:
-            break
+    for i, frame in enumerate(list(clip) + [None]):
+        while True:
+            pic = None if frame is None else Picture(frame, pts=i)
+            if i in timed_calls:
+                with timer:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    nals, out = enc.encode(pic)
+                    torch.cuda.synchronize()
+                    wall += (time.perf_counter() - t0) * 1e3
+            else:
+                nals, out = enc.encode(pic)
+            stream += annexb_bytes(nals)
+            if frame is not None or out is None:
+                break
     runs = len(timed_calls)
     stages = {k: round(v / runs, 3) for k, v in timer.ms.items()}
     stages["unstaged"] = round((wall - sum(timer.ms.values())) / runs, 3)
     stages["encode_call"] = round(wall / runs, 3)
     stages["calls"] = timer.calls
+    return stages, stream
+
+
+def b_stage_breakdown(torch, params, clip, dev):
+    """Stages of a B frame of the default path as Encoder.encode runs
+    them: a fresh encoder takes the clip (nothing is decided before the
+    flush: the MB-tree window is deeper than the clip); every flush call
+    runs under a StageTimer that wraps the B path's stage functions and
+    the lookahead's, so P and I frames pass untimed, and `dispatch_bframe`
+    itself is wrapped too (its synchronise drains what the frames before
+    left on the card; its own time is what a B dispatch does outside the
+    stages: QP maps with AQ, co-located fields, cbp and skip). The flush
+    call that dispatches the clip's last B frame runs under torch.profiler
+    (device_profile) and stays out of the host-clock means. Returns (ms per
+    B frame by stage, with the lookahead's stages as sums over the clip;
+    the profile; the stream)."""
+    from x264_tpu_torch.encoder.encoder import (TYPE_B, Encoder, Picture,
+                                                annexb_bytes)
+    enc = Encoder(params, device=dev)
+    stream = annexb_bytes(enc.headers())
+    for i, frame in enumerate(clip):
+        nals, out = enc.encode(Picture(frame, pts=i))
+        if nals or out is not None:
+            fail("the default path gave a picture before the flush")
+    timer = StageTimer(torch, enc, hooks=StageTimer.B_HOOKS, dpb_push=False)
+    prof = None
+    while True:
+        b_left = sum(ftype == TYPE_B for _, ftype, _, _ in enc._ready)
+        if b_left == 1 and enc._ready[0][1] == TYPE_B:
+            prof, nals, out = device_profile(
+                torch, enc, StageTimer.B_HOOKS, dpb_push=False)
+        else:
+            with timer:
+                nals, out = enc.encode(None)
+        stream += annexb_bytes(nals)
+        if out is None:
+            break
+    # the profiled frame's host times are the profiler's, not the path's:
+    # the means are over the other B frames (a clip with one B frame has
+    # nothing else to show)
+    timed_b = enc.stats["count"]["B"] - 1
+    per_clip = ("lookahead_search", "lookahead_bidir", "mbtree_propagate",
+                "mbtree_finish")
+    # a stage's mean per call, times its calls per frame (one search and
+    # one refine per list); a B frame is finalized two calls after its
+    # dispatch, so the host tail's stages count one frame more than the
+    # dispatch's stages do
+    per_frame = {"esa": 2, "subpel": 2}
+    if timed_b == 0:
+        timer.ms = dict(prof["stage_host_ms"])
+        timer.calls = {k: per_frame.get(k, 1) for k in timer.ms}
+    stages = {k: round(v if k in per_clip else
+                       v / timer.calls.get(k, 1) * per_frame.get(k, 1), 3)
+              for k, v in timer.ms.items()}
+    stages["b_frame_stage_sum"] = round(sum(
+        v for k, v in stages.items() if k not in per_clip), 3)
+    stages["b_frames_timed"] = max(timed_b, 1)
+    stages["calls"] = timer.calls
     return stages, prof, stream
 
 
-def p_device_profile(torch, enc):
-    """One encode(None) call of `enc` (it dispatches the last P frame and
-    finalizes the one before: one frame's work) under torch.profiler,
-    each stage in its range and synchronised as StageTimer does: per
-    stage the card's time and operation count (kernels, copies and sets
-    whose start lies in the stage's innermost range) and the host-clock
-    time, and the device idle share (1 - the card's busy time over the
-    call's host-clock time). Returns (that, or None when the profiler
-    saw no operation on the card; the call's NALs)."""
+def trace_events(torch, prof):
+    """(name, on the card, start us, duration us) of every event of a
+    finished torch.profiler trace. Read from the profiler's raw event
+    list where this PyTorch has it: building `prof.events()` for the
+    ~1,000,000 events of one 1080p frame takes minutes, reading four
+    fields of each takes seconds. Both give the same events."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is not None and hasattr(raw, "events"):
+        raw = raw.events()
+        if raw and hasattr(raw[0], "start_ns") \
+                and hasattr(raw[0], "duration_ns"):
+            return [(e.name(), e.device_type() == cuda, e.start_ns() / 1e3,
+                     e.duration_ns() / 1e3) for e in raw]
+    return [(e.name, e.device_type == cuda, e.time_range.start,
+             e.time_range.elapsed_us()) for e in prof.events()]
+
+
+def device_profile(torch, enc, hooks, dpb_push=True):
+    """One encode(None) call of `enc` (it dispatches one frame and
+    finalizes an earlier one: one frame's work) under torch.profiler,
+    each stage of `hooks` in its range and synchronised as StageTimer
+    does: per stage the card's time and operation count (kernels, copies
+    and sets whose start lies in the stage's innermost range) and the
+    host-clock time, and the device idle share (1 - the card's busy time
+    over the call's host-clock time). Returns (that, with every number
+    None when the profiler saw no operation on the card; the call's NALs
+    and picture)."""
     from torch.profiler import ProfilerActivity, profile
-    timer = StageTimer(torch, enc, ranges=True)
+    timer = StageTimer(torch, enc, ranges=True, hooks=hooks,
+                       dpb_push=dpb_push)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, timer:
         t0 = time.perf_counter()
-        nals, _ = enc.encode(None)
+        nals, out = enc.encode(None)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    cuda = torch.autograd.DeviceType.CUDA
-    events = prof.events()
-    ops = [e for e in events if e.device_type == cuda
-           and not e.name.startswith("stage:")]
-    windows = [(e.name[len("stage:"):], e.time_range.start, e.time_range.end)
-               for e in events if e.device_type != cuda
-               and e.name.startswith("stage:")]
+    host = {k: round(v, 3) for k, v in timer.ms.items()}
+    events = trace_events(torch, prof)
+    ops = [e for e in events if e[1] and not e[0].startswith("stage:")]
+    windows = [(name[len("stage:"):], start, start + dur)
+               for name, on_card, start, dur in events
+               if not on_card and name.startswith("stage:")]
     if not ops:
-        return None, nals
+        return {"frame_host_ms": round(wall_ms, 3), "device_busy_ms": None,
+                "device_idle_share": None, "device_ops": 0,
+                "stage_host_ms": host}, nals, out
     stages, counts = {}, {}
-    for e in ops:
-        hits = [w for w in windows
-                if w[1] <= e.time_range.start <= w[2]]
+    for _, _, start, dur in ops:
+        hits = [w for w in windows if w[1] <= start <= w[2]]
         key = max(hits, key=lambda w: w[1])[0] if hits else "unstaged"
-        stages[key] = stages.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        stages[key] = stages.get(key, 0.0) + dur / 1e3
         counts[key] = counts.get(key, 0) + 1
-    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    busy_ms = sum(e[3] for e in ops) / 1e3
     return {"frame_host_ms": round(wall_ms, 3),
             "device_busy_ms": round(busy_ms, 3),
             "device_idle_share": round(1 - busy_ms / wall_ms, 4),
             "device_ops": len(ops),
             "stage_device_ms": {k: round(v, 3) for k, v in stages.items()},
             "stage_device_ops": counts,
-            "stage_host_ms": {k: round(v, 3)
-                              for k, v in timer.ms.items()}}, nals
+            "stage_host_ms": host}, nals, out
 
 
 if __name__ == "__main__":

@@ -170,10 +170,10 @@ def test_lowres_and_intra_blocks_match_x264_tpu():
 
 
 def test_inter_frames_raise_not_implemented():
-    """IPPP at the bench's settings is ported, CAVLC and CABAC
-    (tests/test_torch_pframe.py, tests/test_torch_cabac.py); B frames, the
-    exhaustive motion search, MB-tree, periodic intra refresh and noise
-    reduction are not, and raise naming their ROADMAP item."""
+    """What is not ported raises naming its ROADMAP item: periodic intra
+    refresh and noise reduction. B frames, the exhaustive motion search
+    and MB-tree raised until they were ported (tests/test_torch_bframe.py,
+    tests/test_torch_mbtree.py): the same settings now encode."""
     frames = synth_frames(3, 64, 48)
     for what in ("bframe", "me_method", "mb_tree", "intra_refresh",
                  "noise_reduction"):
@@ -192,8 +192,11 @@ def test_inter_frames_raise_not_implemented():
             p.intra_refresh = True
         else:
             p.analyse.noise_reduction = 100
-        with pytest.raises(NotImplementedError, match="ROADMAP item"):
-            encode_all(Encoder(p, device="cpu"), frames)
+        if what in ("intra_refresh", "noise_reduction"):
+            with pytest.raises(NotImplementedError, match="ROADMAP item"):
+                encode_all(Encoder(p, device="cpu"), frames)
+        else:
+            assert len(encode_all(Encoder(p, device="cpu"), frames)[1]) == 3
 
 
 def test_import_leaves_jax_out():

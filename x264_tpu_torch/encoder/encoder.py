@@ -6,8 +6,12 @@ Public API as in x264_tpu: Encoder(params, device=...), .headers(),
 types, `Picture`, `PicOut`, `EncoderError` and `validate_parameters` are
 copied from x264_tpu's module unchanged; parameters, SPS/PPS/SEI writers
 and rate control are the port's own copies of x264_tpu's host modules.
-What is ported so far encodes I / IDR and P frames (CAVLC); other frame
-types and options raise NotImplementedError naming their ROADMAP item.
+I / IDR, P and non-reference B frames are encoded, CAVLC and CABAC, with
+the adaptive B-run decision and MB-tree, so `Params()`' defaults run.
+Still raising NotImplementedError, each naming its ROADMAP item: periodic
+intra refresh and SSIM (here), PCM (frame_encode.dispatch_frame), noise
+reduction and P frames without partitions or below subme 7
+(inter.dispatch_pframe).
 """
 
 from __future__ import annotations
@@ -153,9 +157,9 @@ def validate_parameters(p: P.Params) -> P.Params:
 
 
 def frame_redispatch(enc, job):
-    """Re-run a pipelined frame's dispatch (after an overflow re-encode
-    repaired the DPB). frame_num / poc are restored around the call since
-    dispatch advances them."""
+    """Re-run a pipelined frame's dispatch against its original references,
+    by DPB tag (after an overflow re-encode repaired the DPB). frame_num /
+    poc are restored around the call since dispatch advances them."""
     saved = (enc.frame_num, enc.poc)
     enc.frame_num, enc.poc = job["pre_state"]
     from . import frame_encode
@@ -163,7 +167,8 @@ def frame_redispatch(enc, job):
         return frame_encode.dispatch_frame(enc, job["planes"], job["ftype"],
                                            job["qp"], ref_tag=job["ref_tag"],
                                            tree_off=job.get("tree_off"),
-                                           pir=job.get("pir"))
+                                           pir=job.get("pir"),
+                                           ref_bwd=job.get("ref_bwd"))
     finally:
         enc.frame_num, enc.poc = saved
 
@@ -291,17 +296,19 @@ class Encoder:
         """Move decided frames into the pipe while it has room (at most
         pipe_depth + 1 in flight)."""
         while self._ready and len(self._pipe) <= self._pipe_depth:
-            entry, ftype, _ref_fwd, _ref_bwd = self._ready.pop(0)
+            entry, ftype, ref_fwd, ref_bwd = self._ready.pop(0)
             self._enqueue_frame(entry["planes"], ftype, entry["pic"],
-                                entry["idx"], tree_off=entry.get("tree_off"))
+                                entry["idx"], ref_fwd=ref_fwd,
+                                ref_bwd=ref_bwd,
+                                tree_off=entry.get("tree_off"))
 
-    def _enqueue_frame(self, planes, ftype, pic, idx,
-                       tree_off=None) -> None:
-        """Dispatch one frame in coding order and append its job."""
+    def _enqueue_frame(self, planes, ftype, pic, idx, ref_fwd=None,
+                       ref_bwd=None, tree_off=None) -> None:
+        """Dispatch one frame in coding order and append its job. A B
+        frame (between the DPB entries tagged ref_fwd and ref_bwd) is no
+        reference: it advances neither frame_num nor the decoder's list0[0]
+        and leaves nothing in the DPB."""
         from . import frame_encode
-        if ftype in (TYPE_B, TYPE_BREF):
-            raise NotImplementedError("B frames are not ported yet "
-                                      "(ROADMAP item 11)")
         is_idr = ftype == TYPE_IDR
         if is_idr:
             self.last_keyframe = idx
@@ -313,13 +320,15 @@ class Encoder:
         qp = self._decide_qp(ftype, pic, idx)
         pre_state = (self.frame_num, self.poc)
         finalize, retry, recon_dev, ref_fwd = frame_encode.dispatch_frame(
-            self, planes, ftype, qp, tree_off=tree_off)
-        # this frame is now the decoder's most recent reference, the
-        # default list0[0] of the next frame (apply_ref_list_mod)
-        self._last_ref_fn = self.frame_num
-        # reference pictures advance frame_num (spec 7.4.3)
-        self.frame_num = (self.frame_num + 1) % (
-            1 << self.sps.log2_max_frame_num)
+            self, planes, ftype, qp, ref_tag=ref_fwd, tree_off=tree_off,
+            ref_bwd=ref_bwd)
+        if ftype != TYPE_B:
+            # this frame is now the decoder's most recent reference, the
+            # default list0[0] of the next frame (apply_ref_list_mod)
+            self._last_ref_fn = self.frame_num
+            # reference pictures advance frame_num (spec 7.4.3)
+            self.frame_num = (self.frame_num + 1) % (
+                1 << self.sps.log2_max_frame_num)
         tag = idx
         if recon_dev is not None:
             # the next frame's weightp fit reads this frame's source luma
@@ -336,7 +345,8 @@ class Encoder:
             "finalize": finalize, "retry": retry, "pts": pic.pts,
             "dts": dts, "ftype": ftype, "is_idr": is_idr, "qp": qp,
             "planes": planes, "tag": tag, "pre_state": pre_state,
-            "ref_tag": ref_fwd, "tree_off": tree_off, "pir": None,
+            "ref_tag": ref_fwd, "ref_bwd": ref_bwd, "tree_off": tree_off,
+            "pir": None,
             "opaque": pic.opaque})
 
     def _finalize_job(self, job) -> tuple[list, PicOut]:

@@ -1,4 +1,4 @@
-"""Per-frame dispatch (x264_tpu/encoder/frame_encode.py): I, IDR and P
+"""Per-frame dispatch (x264_tpu/encoder/frame_encode.py): I, IDR, P and B
 frames, and the per-MB QP maps (constant, or with AQ / MB-tree offsets)."""
 
 from __future__ import annotations
@@ -8,13 +8,16 @@ import torch
 
 from ..device import const
 from ..ops.tables import CHROMA_QP_TABLE, chroma_qp
-from .encoder import TYPE_I, TYPE_IDR, TYPE_P
+from .encoder import TYPE_B, TYPE_I, TYPE_IDR, TYPE_P
 
 
 def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
-                   pir=None):
+                   pir=None, ref_bwd=None):
     """Returns (finalize_fn, retry_fn(qp) -> (finalize, recon), recon_dev,
-    ref_tag)."""
+    ref_tag). ref_tag: the DPB tag the frame references (None: a P frame
+    takes the newest entry), with which it is dispatched again after an
+    overflow re-encode repaired the DPB; a B frame names both anchors,
+    ref_tag (list 0) and ref_bwd (list 1), and leaves no recon_dev."""
     if enc.p.force_pcm:
         raise NotImplementedError("PCM frames are not ported yet "
                                   "(ROADMAP item 12)")
@@ -26,8 +29,10 @@ def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
         from . import inter
         return inter.dispatch_pframe(enc, planes, ftype, qp, ref_tag,
                                      tree_off=tree_off, pir=pir)
-    raise NotImplementedError("B frames are not ported yet "
-                              "(ROADMAP item 11)")
+    if ftype == TYPE_B:
+        from . import bframe
+        return bframe.dispatch_bframe(enc, planes, qp, ref_tag, ref_bwd)
+    raise ValueError(f"frame type {ftype} has no dispatch")
 
 
 def build_qp_maps(enc, y, u, v, qp_try, tree_off=None):

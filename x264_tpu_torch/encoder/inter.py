@@ -1,12 +1,14 @@
-"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC and CABAC, at the
-settings bench.py runs: preset medium's seeded full-pel search, the 16x8 /
-8x16 partitions (and 8x8 under CAVLC: x264_tpu's CABAC writer has no
-sub_mb_type, so its CABAC frames run without P8x8), two references,
+"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC and CABAC, at preset
+medium's settings: the seeded full-pel search (dia / hex / umh) or the
+exhaustive one (esa / tesa: `motion_search`, which B frames always run),
+the 16x8 / 8x16 partitions (and 8x8 under CAVLC: x264_tpu's CABAC writer
+has no sub_mb_type, so its CABAC frames run without P8x8), two references,
 weighted prediction, intra-in-P with I_4x4, the subme-7 RD tier, trellis
 quantization of inter luma (CABAC only), dct decimation and the deblock.
 
 `encode_pframe` is the whole per-frame pipeline on the frame's device:
-  1. full-pel ME per reference (`p_fullpel_core` -> motion_search_seeded);
+  1. full-pel ME per reference (`p_fullpel_core` -> motion_search_seeded,
+     or motion_search with me_method esa / tesa);
   2. quarter-pel refinement of every partition lane, then the per-MB
      reference choice (`p_subpel_core`, `p_me_select`);
   3. the intra candidate (`p_intra_core`) and the RD re-rank (`p_rd_core`);
@@ -23,8 +25,9 @@ quantization of inter luma (CABAC only), dct decimation and the deblock.
 x264_tpu's scans (lax.scan over offsets and candidates) are Python loops
 over the same static tables here, in the same order, and a step replaces
 the best only when its cost is strictly lower, so ties resolve as in JAX.
-Branches the bench configuration does not take raise NotImplementedError
-in `dispatch_pframe`, naming their ROADMAP item.
+Still raising NotImplementedError in `dispatch_pframe`, each naming its
+ROADMAP item: periodic intra refresh, noise reduction, and P frames
+without partitions or below subme 7.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ def _satd16_map(pred, src):
     return s.reshape(lead + (16,)) >> 1
 
 
+def _satd16(pred, src):
+    """SATD of [N, 16, 16] blocks -> [N]: the sum over all 16 4x4 blocks,
+    halved once (x264_tpu inter._satd16)."""
+    d = pred.to(_i32) - src.to(_i32)
+    dd = d.reshape(-1, 4, 4, 4, 4).transpose(2, 3)
+    return dct.hadamard4x4(dd).abs().sum((1, 2, 3, 4), dtype=_i32) >> 1
+
+
 def _offsets(pairs, device):
     """[K, 2] int32 tensor of (dx, dy) pairs on `device`."""
     return const(np.asarray(pairs, np.int32).reshape(-1, 2), device)
@@ -118,6 +129,91 @@ def _keep_best(best, key, cost, mv):
     better = cost < bc
     best[key] = (torch.where(better, cost, bc),
                  torch.where(better[..., None], mv, bm))
+
+
+def _first_min_along(cost, dim=0):
+    """(minimum, index of its first occurrence) along `dim`."""
+    best = cost.amin(dim)
+    n = cost.shape[dim]
+    shape = [1] * cost.dim()
+    shape[dim] = n
+    pos = torch.arange(n, dtype=_i32, device=cost.device).reshape(shape)
+    first = torch.where(cost == best.unsqueeze(dim), pos, n).amin(dim)
+    return best, first
+
+
+def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
+                  shapes: bool = False):
+    """Exhaustive full-pel search (x264_tpu inter.motion_search, the ESA):
+    every offset of [-R, R]^2 as a shifted-plane SAD map, in two passes.
+    The first costs the MV rate against zero; the median predictor of its
+    winners gives a per-MB MVP estimate, and the second pass re-scores
+    every offset against it.
+
+    x264_tpu scans the offsets one by one, dy outer and dx inner, and keeps
+    a candidate only when its cost is strictly lower. Here one step takes a
+    whole row of dx: the row's first minimum, then the same strict
+    comparison against the best so far, which picks the same winner.
+    `hpel` is unused, as in x264_tpu.
+
+    Returns mv [mbh, mbw, 2] full-pel, or with shapes=True a dict
+    {"16x16": [mbh,mbw,2], "16x8" / "8x16": [mbh,mbw,2,2], "8x8":
+    [mbh,mbw,4,2]} (partition axis before the xy axis)."""
+    H, W = y_src.shape
+    mbh, mbw = H // 16, W // 16
+    dev = y_src.device
+    R = me_range
+    K = 2 * R + 1
+    src16 = y_src.to(torch.int16)[:, None, :]
+    offs = torch.arange(-R, R + 1, dtype=_i32, device=dev)
+    i16 = torch.int16
+
+    def esa_scan(mvp, want_shapes):
+        # the rate of every dx / dy against the MB's predictor: [K, mbh, mbw]
+        bits_x = _mv_cost_bits(offs[:, None, None] * 4 - mvp[..., 0])
+        bits_y = _mv_cost_bits(offs[:, None, None] * 4 - mvp[..., 1])
+        best = {"16x16": (torch.full((mbh, mbw), 1 << 30, dtype=_i32,
+                                     device=dev),
+                          torch.zeros((mbh, mbw, 2), dtype=_i32, device=dev))}
+        if want_shapes:
+            for key, np_ in (("16x8", 2), ("8x16", 2), ("8x8", 4)):
+                best[key] = (torch.full((mbh, mbw, np_), 1 << 30, dtype=_i32,
+                                        device=dev),
+                             torch.zeros((mbh, mbw, np_, 2), dtype=_i32,
+                                         device=dev))
+        for j in range(K):
+            dy = j - R
+            slab = padded_ref[mc.PAD + dy:mc.PAD + dy + H,
+                              mc.PAD - R:mc.PAD + R + W]
+            # [H, K, W]: column k is the plane shifted by dx = k - R
+            ad = (slab.unfold(1, W, 1).to(i16) - src16).abs()
+            # absdiff <= 255 and the 8-wide partial sums <= 2040 fit int16
+            quad = ad.reshape(mbh, 2, 8, K, mbw, 2, 8).sum(6, dtype=i16) \
+                .sum(2, dtype=_i32).permute(2, 0, 3, 1, 4)
+            mvcost = lam * (bits_x + bits_y[j])          # [K, mbh, mbw]
+            cand = {"16x16": quad.sum((3, 4), dtype=_i32) + mvcost}
+            if want_shapes:
+                m4 = mvcost[..., None]
+                cand["16x8"] = quad.sum(4, dtype=_i32) + m4
+                cand["8x16"] = quad.sum(3, dtype=_i32) + m4
+                # the quadrants in z order (TL, TR, BL, BR)
+                cand["8x8"] = quad.reshape(K, mbh, mbw, 4) + m4
+            for key, cost in cand.items():
+                row_best, k = _first_min_along(cost)
+                bc, bm = best[key]
+                better = row_best < bc
+                mv = torch.stack([k - R, torch.full_like(k, dy)], dim=-1)
+                best[key] = (torch.where(better, row_best, bc),
+                             torch.where(better[..., None], mv, bm))
+        return best
+
+    zero_mvp = torch.zeros((mbh, mbw, 2), dtype=_i32, device=dev)
+    mv1 = esa_scan(zero_mvp, False)["16x16"][1]
+    mvp_est, _ = mv_predictors(mv1 * 4)
+    best = esa_scan(mvp_est, shapes)
+    if not shapes:
+        return best["16x16"][1]
+    return {key: best[key][1] for key in ("16x16", "16x8", "8x16", "8x8")}
 
 
 def motion_search_seeded(padded_ref, y_src, lam, me_range: int,
@@ -449,6 +545,23 @@ def _subpel_windows(hpel, mv_c, me_range: int):
                                           SUBPEL_WIN))
 
 
+def subpel_refine_mc(hpel, y_src, mv_c, lam, me_range: int, radius: int = 3,
+                     mvp_q=None):
+    """Qpel refinement of the 16x16 full-pel winners mv_c [mbh, mbw, 2]
+    over the whole +-radius grid, and the luma prediction at the result
+    (x264_tpu inter.subpel_refine_mc).
+    Returns (mvq [n, 2] qpel, pred [n, 16, 16] int32, cost [n])."""
+    H, W = y_src.shape
+    n = (H // 16) * (W // 16)
+    tiles = _mb_tiles(y_src, 16).reshape(n, 16, 16)
+    win = _subpel_windows(hpel, mv_c, me_range)[None]
+    bq, bp, bc = _subpel_refine_scan(
+        win, tiles, mv_c.reshape(1, n, 2), lam,
+        torch.ones((1, 16), dtype=_i32, device=y_src.device), radius,
+        mvp_q=mvp_q)
+    return bq[0], bp[0], bc[0]
+
+
 # raster 4x4-block membership of the 9 refine lanes: 16x16, 16x8 top /
 # bottom, 8x16 left / right, 8x8 q0..q3
 _PART_MASKS = np.zeros((9, 16), np.int32)
@@ -498,10 +611,14 @@ def _first_min(costs):
     return idx.to(_i32), best
 
 
-def p_fullpel_core(y, ref_y_pad, lam, *, me_range):
-    """Full-pel ME against one reference and the qpel MVP estimate of its
+def p_fullpel_core(y, ref_y_pad, lam, *, me_range, me_seeded=True):
+    """Full-pel ME against one reference (the seeded search, or the
+    exhaustive one without me_seeded) and the qpel MVP estimate of its
     16x16 winners. Returns (mvs dict, mvp_q_est [n, 2])."""
-    mvs = motion_search_seeded(ref_y_pad, y, lam, me_range, shapes=True)
+    if me_seeded:
+        mvs = motion_search_seeded(ref_y_pad, y, lam, me_range, shapes=True)
+    else:
+        mvs = motion_search(ref_y_pad, None, y, lam, me_range, shapes=True)
     mvp_q_est, _ = mv_predictors(mvs["16x16"] * 4)
     return mvs, mvp_q_est.reshape(-1, 2)
 
@@ -989,7 +1106,7 @@ def p_deblock_core(recon_y, recon_u, recon_v, is_intra, nnz_l, mv, eff_qp,
 def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
                   mbh, cap_words, me_range, deblock, a_off, b_off, cqpo,
                   decimate, i4, two_refs, entropy=True, p8x8=True,
-                  trl_tabs=None):
+                  trl_tabs=None, me_seeded=True):
     """One P frame on the planes' device (x264_tpu inter._p_pipeline at
     the bench's settings). refs: the live L0 references, 1 or 2 DPB
     entries (a second one only with two_refs); wp: (w, o) luma weight of
@@ -1003,7 +1120,8 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     entropy=True codes CAVLC on the device and returns its words and bit
     count; entropy=False (CABAC) returns the decision dict of
     `p_decisions_dict` in place of the words, and total_bits None.
-    trl_tabs (frame_ctx_costs) turns the trellis on.
+    trl_tabs (frame_ctx_costs) turns the trellis on; me_seeded False takes
+    the exhaustive full-pel search (me_method esa / tesa).
     Returns (words, total_bits, recon planes, stats)."""
     n = mbw * mbh
     ref1_valid = len(refs) == 2
@@ -1012,7 +1130,7 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     for k, ref in enumerate(refs):
         w, o = wp if (k == 0 and wp is not None) else (128, 0)
         mvs, mvp_est = p_fullpel_core(y, ref["y_pad"], lam,
-                                      me_range=me_range)
+                                      me_range=me_range, me_seeded=me_seeded)
         if k == 0:
             mvp_rd = mvp_est
         rs.append(p_subpel_core(y, ref["hpel"], mvs, mvp_est, lam, w, o,
@@ -1083,8 +1201,9 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
 
 # ------------------------------------------------------------ frame glue
 def decisions_to_host(decisions, qp_mb):
-    """The decision and level tensors of `p_decisions_dict` and the QP map
-    as numpy arrays: the one device-to-host copy of a CABAC P frame."""
+    """The decision and level tensors of `p_decisions_dict` (or of
+    bframe.b_decisions_core) and the QP map as numpy arrays: the one
+    device-to-host copy of a CABAC P or B frame."""
     d = {k: val.cpu().numpy() for k, val in decisions.items()}
     return d, _host(qp_mb, np.int32).reshape(-1)
 
@@ -1132,15 +1251,12 @@ def apply_ref_list_mod(enc, ref, sh):
 
 def _unported(enc, pir):
     """NotImplementedError naming the ROADMAP item of a P-frame branch
-    the bench configuration does not take, or None."""
+    that is not ported, or None."""
     a = enc.p.analyse
     if pir is not None:
         return "periodic intra refresh is not ported yet (ROADMAP item 12)"
     if getattr(a, "noise_reduction", 0):
         return "noise reduction is not ported yet (ROADMAP item 12)"
-    if a.me_method > 2:
-        return ("the exhaustive motion search (me_method > 2) is not "
-                "ported yet (ROADMAP item 6)")
     if not a.inter & ANALYSE_PSUB16x16 or a.subpel_refine < 7:
         return ("P frames without partitions or below subme 7 are not "
                 "ported yet (ROADMAP item 6)")
@@ -1220,7 +1336,8 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
             i4=bool(enc.p.analyse.intra & ANALYSE_I4x4), two_refs=two_refs,
             entropy=not cabac,
             # x264_tpu's CABAC writer has no sub_mb_type: no P_8x8 there
-            p8x8=not cabac, trl_tabs=trl_tabs)
+            p8x8=not cabac, trl_tabs=trl_tabs,
+            me_seeded=enc.p.analyse.me_method <= 2)   # dia / hex / umh
         enc._pending_ref_fields = {"mvf": stats["mvf"],
                                    "mvf4": stats["mvf4"],
                                    "inter_mask": stats["inter_mask"]}

@@ -1,11 +1,12 @@
 """Lookahead: frame window + lowres slicetype analysis
 (x264_tpu/encoder/lookahead.py).
 
-Ported: the lowres intake (`lowres_plane`, `intra_blocks`), the P-frame
-cost search (`_search_pair`, which IPPP scene-cut detection runs on every
-frame) and the `Lookahead` window logic, which is host code. The B-frame
-costs (`_bidir_cost`, ROADMAP item 11) and MB-tree (ROADMAP item 10) are
-not ported yet; a decision that needs them raises NotImplementedError.
+The lowres intake (`lowres_plane`, `intra_blocks`), the cost search
+(`_search_pair`, which scene-cut detection runs on every frame), the
+bidirectional cost of a B candidate (`_bidir_cost`, which the adaptive
+B-run decision compares path costs with), MB-tree (`_mbtree_propagate`,
+`_mbtree_finish`, `Lookahead._mbtree_offsets`) and the `Lookahead` window
+logic, which is host code. Nothing here raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -90,6 +91,28 @@ def intra_blocks(low_cur):
         dim=(2, 3), dtype=torch.int32) + 5 * 8
 
 
+def _bidir_cost(low_b, low_p0, low_p1, mv0, mv1):
+    """Cost per 8x8 block of the average of the two references, each at
+    the MV its own search found (mv0 / mv1 [bh, bw, 2], within +-8)."""
+    H, W = low_b.shape
+    bh, bw = H // 8, W // 8
+    dev = low_b.device
+    PAD = 16
+    ar8 = torch.arange(8, device=dev)
+
+    def warp(ref, mv):
+        pad = _clamped(ref, PAD, PAD, PAD, PAD).to(torch.int32)
+        rows = (torch.arange(bh, device=dev)[:, None, None, None] * 8 + PAD
+                + ar8[None, None, :, None] + mv[:, :, 1][:, :, None, None])
+        cols = (torch.arange(bw, device=dev)[None, :, None, None] * 8 + PAD
+                + ar8[None, None, None, :] + mv[:, :, 0][:, :, None, None])
+        return pad[rows.long(), cols.long()]
+
+    avg = (warp(low_p0, mv0) + warp(low_p1, mv1) + 1) >> 1
+    tiles = low_b.to(torch.int32).reshape(bh, 8, bw, 8).transpose(1, 2)
+    return (avg - tiles).abs().sum((2, 3), dtype=torch.int32)
+
+
 class Lookahead:
     """Sliding lookahead window + slicetype decision.
 
@@ -103,11 +126,13 @@ class Lookahead:
         self.prev: dict | None = None
         self._costs: dict = {}
         self.threshold = p.scenecut_threshold / 100.0
+        # a full B run and the frame past it; MB-tree deepens the window
+        # toward rc.lookahead so the propagation has real depth
         self.depth = max(p.bframe + 2, 2)
         self.mbtree = bool(getattr(p.rc, "mb_tree", False))
         if self.mbtree:
-            raise NotImplementedError(
-                "MB-tree lookahead is not ported yet (ROADMAP item 10)")
+            self.depth = max(self.depth, min(max(p.rc.lookahead, 8), 24))
+            self.tree_strength = 5.0 * (1.0 - p.rc.qcompress)
         if p.rc.vbv_buffer_size and p.rc.vbv_max_bitrate:
             self.depth = max(self.depth, min(max(p.rc.lookahead, 8), 40))
 
@@ -148,15 +173,19 @@ class Lookahead:
         if p0 == b:
             out = {"cost": int(ic.sum()), "cost_blk": ic, "mv": None,
                    "intra_blk": ic}
-        elif b != p1:
-            raise NotImplementedError(
-                "B-frame lowres costs (_bidir_cost) are not ported yet "
-                "(ROADMAP item 11)")
         else:
             e0 = self._entry(p0)
             sad0, mv0 = _search_pair(eb["lowres"], e0["lowres"],
                                      e0.get("lowres_ph"))
-            blk = torch.minimum(sad0, ic)
+            best = sad0
+            if b != p1:
+                e1 = self._entry(p1)
+                sad1, mv1 = _search_pair(eb["lowres"], e1["lowres"],
+                                         e1.get("lowres_ph"))
+                bi = _bidir_cost(eb["lowres"], e0["lowres"], e1["lowres"],
+                                 mv0, mv1)
+                best = torch.minimum(best, torch.minimum(sad1, bi))
+            blk = torch.minimum(best, ic)
             out = {"cost": int(blk.sum()), "cost_blk": blk, "mv": mv0,
                    "intra_blk": ic}
         self._costs[key] = out
@@ -286,6 +315,8 @@ class Lookahead:
                     and fidx - last_keyframe >= kmin
                     and self._scenecut(self.prev["idx"], fidx,
                                        last_keyframe))):
+            if self.mbtree:
+                first["tree_off"] = self._mbtree_offsets(0)
             self._consume(1, first, idr_idx=first["idx"])
             return [(first, TYPE_IDR, None, None)]
 
@@ -331,9 +362,102 @@ class Lookahead:
             out.append((anchor, TYPE_IDR, None, None))
             self._consume(nb + 1, anchor, idr_idx=anchor["idx"])
             return out
+        if self.mbtree:
+            anchor["tree_off"] = self._mbtree_offsets(nb)
         out = [(anchor, TYPE_P, None, None)]
         prev_idx = self.prev["idx"]
         for j in range(nb):
             out.append((w[j], TYPE_B, prev_idx, anchor["idx"]))
         self._consume(nb + 1, anchor)
         return out
+
+    def _mbtree_offsets(self, anchor_pos):
+        """Backward MB-tree propagation over the rest of the window into
+        the anchor about to be coded (the undecided tail taken as a chain
+        of P frames). Returns the anchor's per-block QP offsets [bh, bw]
+        float32 on the host, zero-mean (MB-tree moves quality within the
+        frame; the frame's QP stays rate control's), or None when no frame
+        follows the anchor."""
+        w = self.window
+        if anchor_pos + 1 >= len(w):
+            return None
+        anchor = w[anchor_pos]
+        prop = torch.zeros_like(anchor["icost_blk"], dtype=torch.float32)
+        for k in range(len(w) - 1, anchor_pos, -1):
+            f = self._fields(w[k - 1]["idx"], w[k]["idx"], w[k]["idx"])
+            prop = _mbtree_propagate(f["intra_blk"], f["cost_blk"], prop,
+                                     f["mv"])
+        off = _mbtree_finish(anchor["icost_blk"], prop,
+                             self.tree_strength).cpu().numpy()
+        return off - off.mean()
+
+
+# ----------------------------------------------------------------- MB-tree
+def _ordered_scatter_add(size: int, idx, val):
+    """out[idx[k]] += val[k] in float32, the additions onto one target made
+    in the order of k: what a sequential scatter-add gives, and the same
+    on the CPU and on a card (an atomic scatter-add fixes no order, and
+    float32 addition is not associative). A stable sort groups the sources
+    by target; round r then adds every target's r-th source at once."""
+    dev = val.device
+    sidx, perm = torch.sort(idx, stable=True)
+    sval = val[perm]
+    pos = torch.arange(sidx.shape[0], device=dev)
+    first = torch.ones_like(sidx, dtype=torch.bool)
+    first[1:] = sidx[1:] != sidx[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    out = torch.zeros(size, dtype=torch.float32, device=dev)
+    for r in range(int(rank.max()) + 1):
+        m = rank == r
+        t = sidx[m]
+        out[t] = out[t] + sval[m]
+    return out
+
+
+def _mbtree_propagate(intra_blk, cost_blk, prop_in, mv):
+    """One backward propagation step (macroblock_tree_propagate, the
+    single-reference P form): the share of each block's information that
+    it inherits from its reference goes onto the reference's blocks
+    through the lowres MV, split bilinearly over the (up to) four blocks
+    it overlaps, targets clipped to the frame. Returns the reference
+    frame's propagate-in [bh, bw] float32.
+
+    x264_tpu makes four scatter-adds one after the other, which XLA on the
+    CPU runs source by source in raster order; `_ordered_scatter_add` over
+    the four source lists end to end adds in the same order."""
+    bh, bw = intra_blk.shape
+    dev = intra_blk.device
+    f32 = torch.float32
+    intra = intra_blk.to(f32).clamp(min=1.0)
+    inter = torch.minimum(cost_blk, intra_blk).to(f32)
+    fraction = (1.0 - inter / intra).clamp(0.0, 1.0)
+    amount = (intra + prop_in) * fraction
+    x0 = torch.arange(bw, device=dev)[None, :] * 8 + mv[:, :, 0]
+    y0 = torch.arange(bh, device=dev)[:, None] * 8 + mv[:, :, 1]
+    bx, by = x0 >> 3, y0 >> 3                       # floor
+    fx, fy = (x0 - bx * 8).to(f32), (y0 - by * 8).to(f32)
+    idx, val = [], []
+    for dbx, dby, wgt in ((0, 0, (8 - fx) * (8 - fy)), (1, 0, fx * (8 - fy)),
+                          (0, 1, (8 - fx) * fy), (1, 1, fx * fy)):
+        tx = (bx + dbx).clamp(0, bw - 1)
+        ty = (by + dby).clamp(0, bh - 1)
+        idx.append((ty * bw + tx).reshape(-1))
+        val.append((amount * (wgt / 64.0)).reshape(-1))
+    return _ordered_scatter_add(bh * bw, torch.cat(idx).long(),
+                                torch.cat(val)).reshape(bh, bw)
+
+
+def _mbtree_finish(intra_blk, prop, strength):
+    """Per-block QP offsets (macroblock_tree_finish):
+    -strength * log2((intra + propagate) / intra) as a difference of logs.
+
+    log2 is taken in float64 and rounded to float32, as ops/aq.py takes
+    it: correctly rounded on the CPU and on a card alike, where the
+    float32 log2 of either may be an ulp off. The sum, the difference and
+    the product stay in float32, as in x264_tpu."""
+    intra = intra_blk.to(torch.float32).clamp(min=1.0)
+
+    def log2(x):
+        return torch.log2(x.to(torch.float64)).to(torch.float32)
+
+    return (log2(intra + prop) - log2(intra)) * float(np.float32(-strength))

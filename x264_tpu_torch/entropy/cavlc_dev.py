@@ -1,5 +1,5 @@
-"""CAVLC code generation and bit packing on the device, I slices
-(x264_tpu/entropy/cavlc_jax.py, I-slice half).
+"""CAVLC code generation and bit packing on the device, I, P and B slices
+(x264_tpu/entropy/cavlc_jax.py).
 
 Per-block (code, length) syntax elements come from vectorized table
 lookups; a two-phase packer then places every element (at most 32 bits,
@@ -606,16 +606,126 @@ def encode_pframe_entropy_dev(skip, mvd, cbp_luma, cbp_chroma, qp_flat,
     codes, lens, eff_qp, lvl_over, trailing = _pframe_mb_codes(
         skip, mvd, cbp_luma, cbp_chroma, qp_flat, slice_qp, luma_lv,
         cdc_blk, cac_blk, mbw=mbw, mbh=mbh, **kw)
-    # the trailing skip run: one more group row in the stream
+    codes, lens = _trailing_run_row(codes, lens, trailing)
+    words, total_bits = pack_mb_stream(codes, lens, cap_words // n,
+                                       cap_words, force_over=lvl_over)
+    return words, total_bits, eff_qp
+
+
+def _trailing_run_row(codes, lens, trailing):
+    """codes / lens with one more group row: the slice's trailing skip run
+    (nothing when the last MB is coded)."""
     tc, tl = ue_dev(trailing.clamp(min=0))
     trow_c = torch.zeros((1, codes.shape[1]), dtype=_i64, device=codes.device)
     trow_l = torch.zeros((1, codes.shape[1]), dtype=torch.int32,
                          device=codes.device)
     trow_c[0, 0] = tc
     trow_l[0, 0] = torch.where(trailing > 0, tl, 0)
-    words, total_bits = pack_mb_stream(
-        torch.cat([codes, trow_c]), torch.cat([lens, trow_l]), cap_words // n,
-        cap_words, force_over=lvl_over)
+    return torch.cat([codes, trow_c]), torch.cat([lens, trow_l])
+
+
+def encode_bframe_entropy_dev(mode, mvd0, mvd1, cbp_luma, cbp_chroma, qp_flat,
+                              slice_qp, luma_lv, cdc_blk, cac_blk, *,
+                              mbw: int, mbh: int, cap_words: int, skip=None):
+    """B-slice MB layer (x264_tpu cavlc_jax.encode_bframe_entropy_dev):
+    B_Skip runs and B_L0 / L1 / Bi / Direct_16x16, one reference per list.
+
+    mode [N] 0=L0 1=L1 2=BI 3=Direct; mvd0 / mvd1 [N, 2]; skip [N] bool
+    (B_Skip: direct with no residual, coded through mb_skip_run); the rest
+    as in the P writer. The stream has N + 1 group rows, the last for the
+    trailing skip run. Returns (words, total_bits, eff_qp)."""
+    n = mbw * mbh
+    dev = mode.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    skip = (torch.zeros((n,), dtype=torch.bool, device=dev) if skip is None
+            else skip.bool())
+    mode = mode.to(torch.int32)
+    qp_flat = qp_flat.to(torch.int32)
+    cbp_luma = cbp_luma.to(torch.int32)
+    cbp_chroma = cbp_chroma.to(torch.int32)
+    zig = const(ZIGZAG4_FRAME, dev, _i64)
+    luma_z = luma_lv.reshape(n, 16, 16)[:, :, zig]
+    cdc = cdc_blk.reshape(n, 2, 4)
+    cac_z = cac_blk.reshape(n, 2, 4, 16)[:, :, :, zig]
+
+    def count(x, dim):
+        return (x != 0).sum(dim, dtype=torch.int32)
+
+    # ---- residual blocks, as in the P writer ----
+    nc_l = _nc_grid_dev(count(luma_z, 2), mbh, mbw, 4)
+    l_codes, l_lens, _, l_ov = residual_blocks_dev(
+        luma_z.reshape(n * 16, 16), nc_l.reshape(-1))
+    l_codes = l_codes.reshape(n, 16, BLOCK_SLOTS)
+    l_lens = l_lens.reshape(n, 16, BLOCK_SLOTS)
+    cdc_codes, cdc_lens, _, cdc_ov = residual_blocks_dev(
+        cdc.reshape(n * 2, 4), torch.zeros(n * 2, **i32), chroma_dc=True)
+    cdc_codes = cdc_codes.reshape(n, 2, BLOCK_SLOTS)
+    cdc_lens = cdc_lens.reshape(n, 2, BLOCK_SLOTS)
+    nnz_cac = count(cac_z[:, :, :, 1:], 3)
+    nc_c = torch.stack([_nc_grid_dev(nnz_cac[:, 0], mbh, mbw, 2),
+                        _nc_grid_dev(nnz_cac[:, 1], mbh, mbw, 2)], dim=1)
+    cac_codes, cac_lens, _, cac_ov = residual_blocks_dev(
+        cac_z[:, :, :, 1:].reshape(n * 8, 15), nc_c.reshape(-1))
+    cac_codes = cac_codes.reshape(n, 8, BLOCK_SLOTS)
+    cac_lens = cac_lens.reshape(n, 8, BLOCK_SLOTS)
+
+    # ---- skip runs ----
+    idx = torch.arange(n, **i32)
+    coded = ~skip
+    last_coded = torch.cummax(torch.where(coded, idx, -1), 0).values
+    prev_coded = torch.cat([torch.full((1,), -1, **i32), last_coded[:-1]])
+    run = torch.where(coded, idx - prev_coded - 1, 0)
+    trailing = n - 1 - last_coded[-1]
+
+    # ---- header slots: 0 run, 1 mb_type (B_Direct_16x16 ue(0), explicit
+    # ue(mode + 1)), 2-3 mvd l0, 4-5 mvd l1, 6 cbp, 7 dqp ----
+    h_codes = torch.zeros((n, 8), dtype=_i64, device=dev)
+    h_lens = torch.zeros((n, 8), **i32)
+    h_codes[:, 0], h_lens[:, 0] = ue_dev(run)
+    h_codes[:, 1], h_lens[:, 1] = ue_dev(torch.where(mode == 3, 0, mode + 1))
+    use0 = (mode == 0) | (mode == 2)
+    use1 = (mode == 1) | (mode == 2)
+    for slot, (mvd, use, comp) in enumerate(
+            [(mvd0, use0, 0), (mvd0, use0, 1), (mvd1, use1, 0),
+             (mvd1, use1, 1)]):
+        c, ln = se_dev(mvd[:, comp])
+        h_codes[:, 2 + slot] = c
+        h_lens[:, 2 + slot] = torch.where(use, ln, 0)
+    h_codes[:, 6], h_lens[:, 6] = ue_dev(lut(V.CBP_TO_GOLOMB_INTER,
+                                             cbp_chroma * 16 + cbp_luma))
+    has_resid = ((cbp_luma > 0) | (cbp_chroma > 0)) & coded
+    prev_qp, eff_qp = _carried_qp(has_resid, qp_flat, slice_qp)
+    c, ln = se_dev(torch.where(has_resid, qp_flat - prev_qp, 0))
+    h_codes[:, 7] = c
+    h_lens[:, 7] = torch.where(has_resid, ln, 0)
+
+    # ---- gating ----
+    coded3 = coded[:, None, None]
+    h_lens = torch.where(coded[:, None], h_lens, 0)
+    quad = const(_quad_of_raster(), dev)
+    qbit = (cbp_luma[:, None] >> quad[None, :]) & 1
+    l_lens = torch.where((qbit > 0)[:, :, None] & coded3, l_lens, 0)
+    cdc_lens = torch.where((cbp_chroma > 0)[:, None, None] & coded3,
+                           cdc_lens, 0)
+    cac_lens = torch.where((cbp_chroma == 2)[:, None, None] & coded3,
+                           cac_lens, 0)
+    order = const(LUMA4x4_RASTER, dev, _i64)
+    l_codes = l_codes[:, order]
+    l_lens = l_lens[:, order]
+    codes = torch.cat([h_codes, l_codes.reshape(n, -1),
+                       cdc_codes.reshape(n, -1), cac_codes.reshape(n, -1)],
+                      dim=1)
+    lens = torch.cat([h_lens, l_lens.reshape(n, -1),
+                      cdc_lens.reshape(n, -1), cac_lens.reshape(n, -1)],
+                     dim=1)
+    # as in the P writer and the JAX twin: the luma overflow flags (raster)
+    # meet the written-block test taken after the reorder to coding order
+    lvl_over = ((l_ov.reshape(n, 16) & (l_lens.sum(2) > 0)).any()
+                | (cdc_ov.reshape(n, 2) & (cdc_lens.sum(2) > 0)).any()
+                | (cac_ov.reshape(n, 8) & (cac_lens.sum(2) > 0)).any())
+    codes, lens = _trailing_run_row(codes, lens, trailing)
+    words, total_bits = pack_mb_stream(codes, lens, cap_words // n,
+                                       cap_words, force_over=lvl_over)
     return words, total_bits, eff_qp
 
 

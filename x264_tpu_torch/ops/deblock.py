@@ -9,8 +9,8 @@ the V phase. Each phase gathers one region per MB of the diagonal straight
 from raster planes (the regions of one phase do not overlap), filters it
 and scatters it back.
 
-The strengths come from `intra_strengths` (I frames) or
-`compute_strengths` (P frames).
+The strengths come from `intra_strengths` (I frames), `compute_strengths`
+(P frames) or `compute_strengths_b` (B frames).
 """
 
 from __future__ import annotations
@@ -172,6 +172,33 @@ def compute_strengths(intra_mb, nnz4, mv_mb, *, mbw, mbh, ref_mb=None):
             mv_diff = mv_diff | (ref4 != _shift_in(ref4, dim))
         bs_inter = torch.where(nz, 2, torch.where(mv_diff, 1, 0))
         return torch.where(intra4 | intra_p, bs_intra, bs_inter) \
+            .to(torch.int32)
+
+    bs_v = edge_bs(1).reshape(mbh, 4, mbw, 4).permute(0, 2, 3, 1)
+    bs_h = edge_bs(0).reshape(mbh, 4, mbw, 4).permute(0, 2, 1, 3)
+    return bs_v.contiguous(), bs_h.contiguous()
+
+
+def compute_strengths_b(nnz4, use0_mb, use1_mb, mv0_mb, mv1_mb, *, mbw, mbh):
+    """Boundary strengths of a B frame of 16x16 partitions (spec 8.7.2.1,
+    mixed prediction; x264_tpu ops/deblock.compute_strengths_b).
+
+    use0 / use1 [mbh, mbw]: which lists the MB predicts from (explicit and
+    direct MBs alike); mv0 / mv1 [mbh, mbw, 2]. bs 2 on an edge with
+    coefficients; else 1 when the two blocks use different reference sets
+    or a used list's |mv delta| >= 4; else 0 (the two references are
+    different pictures, so no cross-list case arises)."""
+    use04, use14 = _rep4(use0_mb), _rep4(use1_mb)
+    mv04, mv14 = _rep4(mv0_mb), _rep4(mv1_mb)
+
+    def edge_bs(dim):
+        nz = (nnz4 > 0) | (_shift_in(nnz4, dim) > 0)
+        diff_set = ((use04 != _shift_in(use04, dim))
+                    | (use14 != _shift_in(use14, dim)))
+        d0 = ((mv04 - _shift_in(mv04, dim)).abs() >= 4).any(-1)
+        d1 = ((mv14 - _shift_in(mv14, dim)).abs() >= 4).any(-1)
+        mv_diff = (use04 & d0) | (use14 & d1)
+        return torch.where(nz, 2, torch.where(diff_set | mv_diff, 1, 0)) \
             .to(torch.int32)
 
     bs_v = edge_bs(1).reshape(mbh, 4, mbw, 4).permute(0, 2, 3, 1)
