@@ -9,13 +9,15 @@ Phases (any failure exits non-zero and prints no result line):
      (csrc/cabac.cpp, g++) beside it, both compilers started together;
   2. hold the frame kernel (one persistent launch per frame) against its
      plain PyTorch version (commit_ref) on the card, bit-exact (tolerance
-     0: every output is an integer), in the I16, I16+I4 and mixed
-     variants, at 64x48, 48x32, 1920x1088 and a tall frame whose MB rows
-     outnumber the blocks the card holds at once (so blocks loop over
-     rows), and at 1920x1088 with 7 blocks; hold the mixed + I_4x4
-     variant against commit_ref on a real P frame (the arguments of the
-     commit that the encoder's dispatch of the 1080p clip's frame 1,
-     against frame 0's reconstruction, makes) and time it; hold the
+     0: every output is an integer), in the I16, I16+I4, mixed + I_4x4
+     and mixed (without I_4x4) variants, at 64x48, 48x32, 1920x1088 and a
+     tall frame whose MB rows outnumber the blocks the card holds at once
+     (so blocks loop over rows), and at 1920x1088 with 7 blocks; hold the
+     mixed + I_4x4 variant against commit_ref on a real P frame (the
+     arguments of the commit that the encoder's dispatch of the 1080p
+     clip's frame 1, against frame 0's reconstruction, makes at preset
+     medium), the mixed variant on the same frame at preset ultrafast,
+     and time both; hold the
      first port's per-diagonal kernel
      against commit_ref too; time both kernels in turns (old, new, new,
      old) and commit_ref; split the per-diagonal kernel's time into
@@ -28,7 +30,11 @@ Phases (any failure exits non-zero and prints no result line):
      its reconstruction; then the same CUDA == CPU check on 4 IPPP frames
      at 640x360; then all of it again with CABAC (trellis on): IPPP x5 at
      64x48 and x4 at 640x360 at CQP 26, and IPPP x5 at 64x48 at CRF 23
-     with AQ (MB-tree off), the 64x48 streams through refdec;
+     with AQ (MB-tree off), the 64x48 streams through refdec; IBBP and
+     the defaults; then veryfast, fast, noise reduction, periodic intra
+     refresh (keyint 8, Encoder.intra_refresh() ahead of frame 1), I_PCM
+     and SSIM at 64x48 x5 and 640x360 x3, refdec decoding the 640x360
+     streams, the SSIM of each frame equal on both devices;
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernel's launch count reset
@@ -61,6 +67,16 @@ Phases (any failure exits non-zero and prints no result line):
      its own beside phase 3's checks (they time nothing), and phase 4
      waits for it, so every fps and stage time is taken with nothing
      else running;
+  9. the two ultrafast paths: 6 frames of the same clip at
+     param_default_preset("ultrafast") with the size and CQP 26 (no
+     deblock, no I_4x4, no partitions, subme 0: the I16 and the mixed
+     variants without I_4x4), and 16 frames of it with intra refresh at
+     keyint 8 (the sweep restarts at frame 8 and crosses the frame by
+     frame 15: the mixed variant with a forced-intra column band), each
+     through Encoder.encode with the launch count reset just before and
+     read just after (one per frame), frames 0-1 against a CPU encode of
+     the same frames, the band columns per frame, and a P-frame stage
+     breakdown while the clip is encoded again;
   6. print fps, the kernels' and the plain version's time per frame,
      per-stage breakdowns of a 1080p I frame and of a 1080p P frame with
      two references (the P path's own stage functions timed while
@@ -92,6 +108,12 @@ N_P_FRAMES = 4        # IPPP main path: IDR + 3 P (frames 2-3: two refs)
 N_CABAC_FRAMES = 4    # CABAC main path: IDR + 3 P (frames 2-3: two refs)
 N_DEFAULT_FRAMES = 8  # default path: fewer than the MB-tree window's 24
 QP = 26
+N_FAST_FRAMES = 6     # the 1080p ultrafast path: IPPPPP
+N_PIR_FRAMES = 16     # ultrafast + intra refresh at keyint 8: a sweep in
+                      # frames 8-15
+# the commit kernel's variants in phase 2: (label, mixed, with_i4)
+VARIANTS = (("i16", False, False), ("i16+i4", False, True),
+            ("mixed+i4", True, True), ("mixed", True, False))
 
 
 def fail(msg):
@@ -177,6 +199,55 @@ def default_params(w, h):
     return p
 
 
+def ultrafast_params(w, h, qp=QP, pir=False):
+    """param_default_preset("ultrafast") with only the size and CQP set (no
+    deblock, no I_4x4, no partitions, subme 0, one reference, no lookahead,
+    no scene cut, CAVLC, no B frames); with pir, periodic intra refresh at
+    keyint_max 8."""
+    from x264_tpu_torch import param_default_preset
+    p = param_default_preset("ultrafast")
+    p.width, p.height = w, h
+    p.rc.rc_method = 0
+    p.rc.qp_constant = qp
+    if pir:
+        p.intra_refresh = True
+        p.keyint_max = 8
+    return p
+
+
+def preset_params(name):
+    """make(w, h): param_default_preset(name) with only the size set."""
+    def make(w, h):
+        from x264_tpu_torch import param_default_preset
+        p = param_default_preset(name)
+        p.width, p.height = w, h
+        return p
+    return make
+
+
+def option_params(**over):
+    """make(w, h): ippp_params (preset medium, IPPP, CQP, CAVLC) with
+    `over` set (a__b sets p.a.b)."""
+    def make(w, h):
+        p = ippp_params(w, h)
+        for key, val in over.items():
+            obj = p
+            *path, last = key.split("__")
+            for name in path:
+                obj = getattr(obj, name)
+            setattr(obj, last, val)
+        return p
+    return make
+
+
+def pcm_params(w, h):
+    """Preset ultrafast (no deblock) with only I_PCM frames."""
+    p = ultrafast_params(w, h)
+    p.force_pcm = True
+    p.keyint_max = 1
+    return p
+
+
 def decided_types(params, frames, dev):
     """The frame types (coding order) the lookahead of an Encoder with
     `params` decides for `frames`, all pushed and then flushed: the
@@ -214,12 +285,15 @@ def moving_frames(n, w, h, seed=0):
     return out
 
 
-def encode_stream(enc, frames, picture):
-    """Headers + frames (drained) -> (annex-B bytes, [PicOut])."""
+def encode_stream(enc, frames, picture, before=None):
+    """Headers + frames (drained) -> (annex-B bytes, [PicOut]).
+    before(enc, i), if given, runs ahead of the encode call of frame i."""
     from x264_tpu_torch.encoder.encoder import annexb_bytes
     stream = annexb_bytes(enc.headers())
     outs = []
     for i, f in enumerate(list(frames) + [None]):
+        if before is not None and f is not None:
+            before(enc, i)
         while True:
             nals, out = enc.encode(None if f is None else picture(f, pts=i))
             stream += annexb_bytes(nals)
@@ -380,6 +454,40 @@ def commit_bound(args, kw, got):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def real_p_commit(torch, C, variant, args, kw):
+    """The frame kernel against commit_ref on a real P frame's commit
+    arguments, then timed (CUDA events, 2 x 20 launches after 3), with its
+    bound. Returns what the report reads."""
+    ref, plain_ms = timed_ref(torch, C, args, kw)
+    err = max_abs_err(ref, C.commit_cuda(*args, **kw))
+    n_mb = args[7] * args[8]
+    n_intra = int(kw["is_intra"].sum())
+    n_i4 = int((kw["is_intra"] & kw["i4_mask"]).sum()) if "i4_mask" in kw \
+        else 0
+    log(f"phase 2 frame kernel vs commit_ref 1920x1088 {variant} on P frame "
+        f"1: max_abs_err {err} (tolerance 0), intra MBs {n_intra} of "
+        f"{n_mb}, I4 MBs {n_i4}")
+    if err != 0:
+        fail(f"frame kernel disagrees with commit_ref on a real P frame "
+             f"({variant})")
+    progs = []
+
+    def run():
+        progs.append(C.commit_launch(*args, **kw)[2])
+
+    cuda_ms(torch, run, 3)                       # warm-up
+    runs = [cuda_ms(torch, run, 20) for _ in range(2)]
+    for prog in progs:
+        C.check_progress(prog, args[7])
+    bound_ms, bound_by, nbytes, ops = commit_bound(args, kw, ref)
+    log(f"phase 2 {variant} commit per 1080p P frame (CUDA events, 20 runs "
+        f"each): {runs[0]:.4f} / {runs[1]:.4f} ms; commit_ref "
+        f"{plain_ms:.1f} ms; bound {bound_ms * 1e3:.3f} us by {bound_by} "
+        f"({nbytes} bytes, {ops} integer ops)")
+    return {"max_abs_err": err, "ms": sum(runs) / len(runs),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def refdec_start(stream, tag="s"):
@@ -576,7 +684,7 @@ def main():
 
     # ---- phase 2: kernels vs plain version on the card ----
     mark("1 build")
-    clip = synth_clip(N_DEFAULT_FRAMES)
+    clip = synth_clip(max(N_DEFAULT_FRAMES, N_PIR_FRAMES))
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
     rng = np.random.default_rng(5)
@@ -597,10 +705,9 @@ def main():
         enc = enc_big if w == 1920 else Encoder(intra_params(w, h),
                                                 device=dev)
         planes = enc._pad_to_mb(frame)
-        for variant in ("i16", "i16+i4", "mixed"):
+        for variant, mixed, with_i4 in VARIANTS:
             args, kw = commit_inputs(torch, enc, planes, qp_i, seed=7,
-                                     mixed=variant == "mixed",
-                                     with_i4=variant != "i16")
+                                     mixed=mixed, with_i4=with_i4)
             ref, ref_ms = timed_ref(torch, C, args, kw)
             runs = [("frame kernel", C.commit_cuda(*args, **kw))]
             if label == "1920x1088":
@@ -623,40 +730,22 @@ def main():
             if label == "1920x1088" and variant == "i16+i4":
                 timing_args = (args, kw, ref, ref_ms)
 
-    mark("2 kernel vs commit_ref, 4 sizes x 3 variants")
-    # the mixed + I_4x4 variant on a real P frame: the arguments of the
-    # commit that the encoder's own dispatch of frame 1 (against frame
-    # 0's reconstruction) makes
-    enc_p = Encoder(ippp_params(1920, 1080), device=dev)
-    enqueue(enc_p, clip[0], TYPE_IDR, 0)
-    margs, mkw = captured_commit(enc_p, clip[1], 1)
-    del enc_p
-    mref, mixed_plain_ms = timed_ref(torch, C, margs, mkw)
-    merr = max_abs_err(mref, C.commit_cuda(*margs, **mkw))
-    worst = max(worst, merr)
-    n_mb = margs[7] * margs[8]
-    n_intra = int(mkw["is_intra"].sum())
-    n_i4 = int((mkw["is_intra"] & mkw["i4_mask"]).sum())
-    log(f"phase 2 frame kernel vs commit_ref 1920x1088 mixed+i4 on P frame "
-        f"1: max_abs_err {merr} (tolerance 0), intra MBs {n_intra} of "
-        f"{n_mb}, I4 MBs {n_i4}")
-    if merr != 0:
-        fail("frame kernel disagrees with commit_ref on a real P frame")
-    mprogs = []
-
-    def run_mixed():
-        mprogs.append(C.commit_launch(*margs, **mkw)[2])
-
-    cuda_ms(torch, run_mixed, 3)                       # warm-up
-    mixed_runs = [cuda_ms(torch, run_mixed, 20) for _ in range(2)]
-    for prog in mprogs:
-        C.check_progress(prog, margs[7])
-    mixed_ms = sum(mixed_runs) / len(mixed_runs)
-    m_bound_ms, m_bound_by, m_bytes, m_ops = commit_bound(margs, mkw, mref)
-    log(f"phase 2 mixed+i4 commit per 1080p P frame (CUDA events, 20 runs "
-        f"each): {mixed_runs[0]:.4f} / {mixed_runs[1]:.4f} ms; commit_ref "
-        f"{mixed_plain_ms:.1f} ms; bound {m_bound_ms * 1e3:.3f} us by "
-        f"{m_bound_by} ({m_bytes} bytes, {m_ops} integer ops)")
+    mark("2 kernel vs commit_ref, 4 sizes x 4 variants")
+    # the mixed variant on real P frames: the arguments of the commit that
+    # the encoder's own dispatch of frame 1 (against frame 0's
+    # reconstruction) makes, at preset medium (with I_4x4) and at
+    # ultrafast (without)
+    real_p = {}
+    for variant, make in (("mixed+i4", ippp_params),
+                          ("mixed", ultrafast_params)):
+        enc_p = Encoder(make(1920, 1080), device=dev)
+        enqueue(enc_p, clip[0], TYPE_IDR, 0)
+        pargs, pkw = captured_commit(enc_p, clip[1], 1)
+        del enc_p
+        if ("i4_mask" in pkw) != (variant == "mixed+i4"):
+            fail(f"the {variant} P frame's commit has the wrong variant")
+        real_p[variant] = real_p_commit(torch, C, variant, pargs, pkw)
+        worst = max(worst, real_p[variant]["max_abs_err"])
 
     args, kw, ref, plain_ms = timing_args
     bound_ms, bound_by, nbytes, ops = commit_bound(args, kw, ref)
@@ -914,6 +1003,73 @@ def main():
             f"reconstruction")
 
     mark("3 CUDA vs CPU streams, B frames and the defaults")
+    # the presets below medium and the options around the P path, at 64x48
+    # and 640x360; refdec decodes the 640x360 streams beside the encodes.
+    # Under PIR, Encoder.intra_refresh() ahead of frame 1 starts the column
+    # sweep there (left alone it starts at frame keyint)
+    def refresh_at_1(enc, i):
+        if i == 1 and enc.p.intra_refresh:
+            enc.intra_refresh()
+
+    mid3 = mid[:3]
+    decoding = []
+    for label, make in (
+            ("veryfast", preset_params("veryfast")),
+            ("fast", preset_params("fast")),
+            ("NR 200", option_params(analyse__noise_reduction=200)),
+            ("PIR keyint 8", option_params(intra_refresh=True,
+                                           keyint_max=8)),
+            # tests/test_pcm_e2e.py's preset: refdec filters I_PCM MBs
+            # when the deblock is on (libavcodec does not), so it stays off
+            ("PCM", pcm_params),
+            ("SSIM", option_params(analyse__ssim=True))):
+        for w, h, frames_c in ((64, 48, mov), (640, 360, mid3)):
+            pc = make(w, h)
+            pc.full_recon = True
+            enc_g = Encoder(pc, device=dev)
+            t0 = time.time()
+            s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture,
+                                         refresh_at_1)
+            t_gpu = time.time() - t0
+            enc_c = Encoder(make(w, h), device="cpu")
+            t0 = time.time()
+            s_cpu, o_cpu = encode_stream(enc_c, frames_c, Picture,
+                                         refresh_at_1)
+            t_cpu = time.time() - t0
+            types_o = [o.i_type for o in o_gpu]
+            tag = f"{label} {w}x{h} x{len(frames_c)}"
+            if len(o_gpu) != len(frames_c):
+                fail(f"{tag}: {len(o_gpu)} frames")
+            if s_gpu != s_cpu:
+                fail(f"{tag}: CUDA and CPU streams differ")
+            extra = ""
+            if label == "SSIM":
+                d = max(abs(a.ssim - b.ssim) for a, b in zip(o_gpu, o_cpu))
+                if d > 1e-6:
+                    fail(f"{tag}: SSIM CUDA vs CPU differs by {d}")
+                extra = (f", SSIM {[round(o.ssim, 6) for o in o_gpu]} "
+                         f"(CUDA vs CPU within {d:.2e})")
+            if label == "PIR keyint 8":
+                extra = f", keyframes {[o.b_keyframe for o in o_gpu]}"
+                if not o_gpu[1].b_keyframe:
+                    fail(f"{tag}: the queued refresh did not start a sweep "
+                         f"at frame 1")
+            if w == 640:
+                decoding.append((tag, refdec_start(
+                    s_gpu, f"o{len(decoding)}"), o_gpu, w, h))
+            log(f"phase 3 {tag}: CUDA stream == CPU stream ({len(s_gpu)} "
+                f"bytes, types {types_o}, QPs {[o.qp for o in o_gpu]}, P MBs "
+                f"{enc_g.stats.get('mb', {}).get('P')}{extra}; CUDA "
+                f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
+    for tag, job, o_gpu, w, h in decoding:
+        decoded, dec_s = refdec_finish(job, w, h)
+        if not decodes_to(decoded, o_gpu):
+            fail(f"{tag}: refdec does not decode the CUDA stream to its "
+                 f"recon")
+        log(f"phase 3 {tag}: refdec decodes the CUDA stream to the CUDA "
+            f"reconstruction ({dec_s:.1f} s)")
+
+    mark("3 CUDA vs CPU streams, presets and options")
     decoded8, refdec_s = refdec_finish(refdec8, 1920, 1080, timeout=900)
     if not decodes_to(decoded8, outs8):
         fail("refdec does not decode the default path's stream to its "
@@ -1046,8 +1202,17 @@ def main():
     log(f"phase 7 1080p CABAC frame 0: CUDA stream == CPU stream "
         f"({len(s_cpu7)} bytes with the headers; CPU {t_cpu7:.1f} s)")
 
-    # ---- phase 6: report ----
+    # ---- phase 9: 1080p ultrafast, and ultrafast with intra refresh ----
     mark("7 IPPP CABAC path and its CPU frame 0")
+    fast = {}
+    for label, pir, n, timed in (
+            ("ultrafast", False, N_FAST_FRAMES, (3, 4, 5)),
+            ("intra refresh", True, N_PIR_FRAMES, (10, 11, 12))):
+        fast[label] = fast_path(torch, C, label, ultrafast_params(
+            1920, 1080, pir=pir), clip[:n], dev, qp_i, timed)
+        mark(f"9 1080p {label} path, its CPU frames 0-1, its stages")
+
+    # ---- phase 6: report ----
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
                              qp_i)
     p_stages, stream6 = p_stage_breakdown(torch, p5, clip[:N_P_FRAMES], dev,
@@ -1096,6 +1261,14 @@ def main():
         "frame): " + (
         json.dumps(b_prof) + ("" if b_prof["device_ops"] else " (the "
         "profiler saw no device time: device idle share not measured)")))
+    for label, r in fast.items():
+        log(f"phase 6 fps ({r['frames']} x 1080p {label}, Encoder.encode, "
+            f"host clock, first frame included): {r['fps']:.4f} "
+            f"({r['wall']:.3f} s)")
+        log(f"phase 6 stages ms per 1080p P frame, {label} (host clock, "
+            f"synchronised; the Encoder.encode calls {r['timed']}, each "
+            f"dispatching the P frame before it; its stream == phase 9's): "
+            + json.dumps(r["stages"]))
     log("phase 6 host seconds by phase: " + json.dumps(phase_seconds()))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1111,14 +1284,119 @@ def main():
         "launches_all_intra_path": launches,
         "launches_cabac_path": launches_c,
         "launches_default_path": launches_d,
-        "mixed_p_frame_ms": mixed_ms, "mixed_p_frame_plain_ms":
-        mixed_plain_ms, "mixed_p_frame_bound_ms": m_bound_ms,
-        "mixed_p_frame_bound_by": m_bound_by}]}))
+        "launches_ultrafast_path": fast["ultrafast"]["launches"],
+        "launches_intra_refresh_path": fast["intra refresh"]["launches"],
+        "mixed_p_frame_ms": real_p["mixed+i4"]["ms"],
+        "mixed_p_frame_plain_ms": real_p["mixed+i4"]["plain_ms"],
+        "mixed_p_frame_bound_ms": real_p["mixed+i4"]["bound_ms"],
+        "mixed_p_frame_bound_by": real_p["mixed+i4"]["bound_by"],
+        "mixed_no_i4_ultrafast_p_frame_ms": real_p["mixed"]["ms"],
+        "mixed_no_i4_ultrafast_p_frame_plain_ms":
+        real_p["mixed"]["plain_ms"],
+        "mixed_no_i4_ultrafast_p_frame_bound_ms":
+        real_p["mixed"]["bound_ms"],
+        "mixed_no_i4_ultrafast_p_frame_bound_by":
+        real_p["mixed"]["bound_by"]}]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
+    """Phase 9: one 1080p path at preset ultrafast through Encoder.encode
+    on the card, the commit launches counted per dispatched frame (reset
+    just before, read just after), then frames 0-1 against a CPU encode of
+    the same two frames, then the P-frame stage breakdown while the clip
+    is encoded again (its stream must equal this one's): `timed_calls`
+    are the encode calls timed. Under intra refresh each frame's refresh
+    band (first and last column, empty while no sweep runs) is kept; the
+    sweep starts at frame keyint, where the keyframe becomes a P frame
+    and a recovery point. Returns what the report reads."""
+    import numpy as np
+    from x264_tpu_torch.encoder.encoder import (TYPE_IDR, TYPE_P, Encoder,
+                                                Picture)
+    params.analyse.psnr = True
+    enc = Encoder(params, device=dev)
+    per_frame, bands = [], []
+    enqueue_real, pir_real = enc._enqueue_frame, enc._pir_advance
+
+    def counted(*a, **kw):
+        n0 = C.commit.launches
+        out = enqueue_real(*a, **kw)
+        per_frame.append(C.commit.launches - n0)
+        return out
+
+    def banded(ftype, idx):
+        out = pir_real(ftype, idx)
+        bands.append(None if out[1] is None else
+                     {"frame": idx, "columns": list(out[1][:2]),
+                      "recovery": out[2]})
+        return out
+
+    enc._enqueue_frame = counted
+    enc._pir_advance = banded
+    torch.cuda.synchronize()
+    C.commit.launches = 0
+    t0 = time.time()
+    stream, outs = encode_stream(enc, clip, Picture)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = C.commit.launches
+    types = [o.i_type for o in outs]
+    n = len(clip)
+    retries = sum((o.qp - qp_i) // 4 if o.i_type == TYPE_IDR else
+                  (o.qp - params.rc.qp_constant) // 4 for o in outs)
+    log(f"phase 9 1080p {label}: {len(outs)} frames, types {types}, "
+        f"{len(stream)} bytes, bytes per frame {frame_bytes(stream)}, QPs "
+        f"{[o.qp for o in outs]}, keyframes {[o.b_keyframe for o in outs]}, "
+        f"commit launches {launches} (per dispatched frame {per_frame}; "
+        f"{n} frames + {retries} re-encodes), P MBs "
+        f"{enc.stats['mb']['P']}")
+    if types != [TYPE_IDR] + [TYPE_P] * (n - 1):
+        fail(f"{label}: frame types {types}")
+    if launches != n + retries:
+        fail(f"{label}: commit launches {launches} != {n} + {retries}")
+    if params.intra_refresh:
+        swept = [[b["frame"], *b["columns"], b["recovery"]] for b in bands
+                 if b and b["columns"][0] <= b["columns"][1]]
+        log(f"phase 9 1080p {label}: refresh band [frame, first column, "
+            f"last column, recovery point] where a sweep runs: "
+            f"{json.dumps(swept)}")
+        k = params.keyint_max
+        sweep = bands[k:2 * k]
+        if not (outs[k].b_keyframe and sweep[0]["recovery"]
+                and sweep[0]["columns"][0] == 0
+                and sweep[-1]["columns"][1] == params.width // 16 - 1):
+            fail(f"{label}: no sweep from column 0 to the last, starting "
+                 f"with a recovery point, in frames {k}-{2 * k - 1}")
+    w, h = params.width, params.height
+    for o in outs:
+        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
+        if shapes != [(h, w), (h // 2, w // 2), (h // 2, w // 2)]:
+            fail(f"recon shapes {shapes}")
+        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
+            fail(f"{label}: PSNR {o.psnr} (expected finite and > 30 dB)")
+    log(f"phase 9 1080p {label} PSNR Y/U/V per frame: "
+        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
+                   for o in outs))
+    params_cpu = params.copy()
+    t0 = time.time()
+    s_cpu, _ = encode_stream(Encoder(params_cpu, device="cpu"), clip[:2],
+                             Picture)
+    t_cpu = time.time() - t0
+    if not stream.startswith(s_cpu):
+        fail(f"1080p {label} frames 0-1: CUDA stream differs from the CPU "
+             f"port's")
+    log(f"phase 9 1080p {label} frames 0-1: CUDA stream == CPU stream "
+        f"({len(s_cpu)} bytes with the headers; CPU {t_cpu:.1f} s)")
+    stages, stream2 = p_stage_breakdown(torch, params, clip, dev,
+                                        timed_calls)
+    if stream2 != stream:
+        fail(f"the timed {label} encode's stream differs from phase 9's")
+    return {"fps": n / wall, "wall": wall, "launches": launches,
+            "stages": stages, "frames": n, "timed": list(timed_calls)}
 
 
 def stage_breakdown(torch, enc, planes, qp):

@@ -170,10 +170,11 @@ def test_lowres_and_intra_blocks_match_x264_tpu():
 
 
 def test_inter_frames_raise_not_implemented():
-    """What is not ported raises naming its ROADMAP item: periodic intra
-    refresh and noise reduction. B frames, the exhaustive motion search
-    and MB-tree raised until they were ported (tests/test_torch_bframe.py,
-    tests/test_torch_mbtree.py): the same settings now encode."""
+    """Options that raised NotImplementedError until they were ported. B
+    frames, the exhaustive motion search and MB-tree encode (their parity
+    is held in tests/test_torch_bframe.py and tests/test_torch_mbtree.py);
+    periodic intra refresh and noise reduction encode byte-identical to
+    x264_tpu, with equal reconstructions."""
     frames = synth_frames(3, 64, 48)
     for what in ("bframe", "me_method", "mb_tree", "intra_refresh",
                  "noise_reduction"):
@@ -192,11 +193,14 @@ def test_inter_frames_raise_not_implemented():
             p.intra_refresh = True
         else:
             p.analyse.noise_reduction = 100
+        got = encode_all(Encoder(p, device="cpu"), frames)
+        assert len(got[1]) == 3
         if what in ("intra_refresh", "noise_reduction"):
-            with pytest.raises(NotImplementedError, match="ROADMAP item"):
-                encode_all(Encoder(p, device="cpu"), frames)
-        else:
-            assert len(encode_all(Encoder(p, device="cpu"), frames)[1]) == 3
+            ref = encode_all(JaxEncoder(p), frames)
+            assert got[0] == ref[0], what
+            for a, b in zip(ref[1], got[1]):
+                for c in range(3):
+                    np.testing.assert_array_equal(a[c], b[c], err_msg=what)
 
 
 def test_import_leaves_jax_out():

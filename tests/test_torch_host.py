@@ -1,11 +1,13 @@
 """The port's copies of x264_tpu's host modules against the originals.
 
 x264_tpu_torch keeps its own params, SPS/PPS/SEI and slice-header
-writers, and rate control, so that it imports nothing of x264_tpu. Each
-case builds the same input in both packages and asserts the two give the
-same values, bytes or QPs."""
+writers, rate control and logger, so that it imports nothing of x264_tpu.
+Each case builds the same input in both packages and asserts the two give
+the same values, bytes or QPs; utils/log.py is also a line-for-line copy,
+and both Encoders carry a logger at the parameters' level."""
 
 import dataclasses
+import inspect
 
 import numpy as np
 import pytest
@@ -15,11 +17,13 @@ from x264_tpu.encoder import encoder as jenc
 from x264_tpu.encoder import ratecontrol as jrc
 from x264_tpu.entropy import sets as jsets
 from x264_tpu.entropy import slice_hdr as jsh
+from x264_tpu.utils import log as jlog
 from x264_tpu_torch import params as tp
 from x264_tpu_torch.encoder import encoder as tenc
 from x264_tpu_torch.encoder import ratecontrol as trc
 from x264_tpu_torch.entropy import sets as tsets
 from x264_tpu_torch.entropy import slice_hdr as tsh
+from x264_tpu_torch.utils import log as tlog
 
 JAX_SIDE = (jp, jenc, jrc, jsets, jsh)
 PORT_SIDE = (tp, tenc, trc, tsets, tsh)
@@ -167,3 +171,28 @@ def test_ratecontrol_qp_sequence_matches(method):
     ref = _qp_sequence(JAX_SIDE, method)
     assert _qp_sequence(PORT_SIDE, method) == ref
     assert len(set(ref)) > 1 or method == "cqp"
+
+
+def test_log_module_is_a_copy_and_filters_alike(capsys):
+    assert inspect.getsource(tlog) == inspect.getsource(jlog)
+    seen = {}
+    for side, mod in (("jax", jlog), ("port", tlog)):
+        got = []
+        lg = mod.Logger(mod.LOG_WARNING, lambda lv, m: got.append((lv, m)))
+        for emit in (lg.error, lg.warning, lg.info, lg.debug):
+            emit(emit.__name__)
+        lg.set_sink(None)
+        lg.error("to stderr")
+        seen[side] = (got, capsys.readouterr().err)
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][0] == [(0, "error"), (1, "warning")]
+    assert seen["port"][1] == "x264-tpu [error]: to stderr\n"
+
+
+def test_encoder_log_follows_log_level():
+    """Encoder.log (x264_tpu Encoder.__init__) at p.log_level."""
+    p = tp.param_default_preset("ultrafast")
+    p.width, p.height, p.log_level = 64, 48, tlog.LOG_DEBUG
+    enc = tenc.Encoder(p, device="cpu")
+    assert isinstance(enc.log, tlog.Logger)
+    assert enc.log.level == tlog.LOG_DEBUG

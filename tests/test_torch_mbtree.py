@@ -283,25 +283,46 @@ def _set(path, value):
     return apply
 
 
-# what still raises, and the ROADMAP item its message must name
+# options that raised naming a ROADMAP item until they were ported; at
+# the defaults each now encodes, except PCM, which x264_tpu keeps intra
+# only (None: the message a P frame under it raises with, as x264_tpu's)
 UNPORTED = {
-    "pir": (_set("intra_refresh", True), "item 12"),
-    "ssim": (_set("analyse.ssim", True), "item 7"),
-    "pcm": (_set("force_pcm", True), "item 12"),
-    "noise_reduction": (_set("analyse.noise_reduction", 100), "item 12"),
-    "no_partitions": (_set("analyse.inter", 0), "item 6"),
-    "subme_6": (_set("analyse.subpel_refine", 6), "item 6"),
+    "pir": (_set("intra_refresh", True), None),
+    "ssim": (_set("analyse.ssim", True), None),
+    "pcm": (_set("force_pcm", True), "intra-only"),
+    "noise_reduction": (_set("analyse.noise_reduction", 100), None),
+    "no_partitions": (_set("analyse.inter", 0), None),
+    "subme_6": (_set("analyse.subpel_refine", 6), None),
 }
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_still_name_their_roadmap_item(name):
-    change, item = UNPORTED[name]
+    """Each option at the defaults (CRF, B frames, MB-tree) encodes on the
+    port, and refdec decodes the stream to its reconstruction; force_pcm
+    raises at the first P frame, as in x264_tpu. Their parity with
+    x264_tpu is held in tests/test_torch_{presets_fast,presets_ref2,
+    options,recovery}.py."""
+    change, raises = UNPORTED[name]
     p = default_params(param_default_preset)
     change(p)
-    frames = moving_frames(6, 64, 48)
-    with pytest.raises(NotImplementedError, match=item):
-        encode_all(Encoder(p, device="cpu"), frames)
+    p.full_recon = True
+    frames = moving_frames(3, 64, 48)
+    if raises:
+        with pytest.raises(NotImplementedError, match=raises):
+            encode_all(Encoder(p, device="cpu"), frames)
+        return
+    stream, outs = encode_all(Encoder(p, device="cpu"), frames)
+    assert len(outs) == 3
+    if name == "pir":           # no B frames and no IDR after the first
+        assert [o.i_type for o in outs][1:] == [TYPE_P] * 2
+    if name == "ssim":
+        assert all(0.5 < o.ssim <= 1.0 for o in outs)
+    decoded = refdec.Decoder().decode(stream)
+    assert len(decoded) == 3
+    for d, o in zip(decoded, outs):
+        for c in range(3):
+            np.testing.assert_array_equal(d[c], np.asarray(o.recon[c]))
 
 
 @pytest.mark.parametrize("me_method", [3, 4], ids=["esa", "tesa"])

@@ -1,0 +1,98 @@
+"""Helpers of the clip tests that run one configuration through both
+Encoders, x264_tpu's and the port's (tests/test_torch_presets*.py,
+test_torch_options.py, test_torch_recovery.py): encode a clip, compare
+what came out, decode the port's stream with tools/refdec.py."""
+
+import os
+import sys
+
+import numpy as np
+
+from x264_tpu import param_default_preset as jax_preset
+from x264_tpu.encoder.encoder import Encoder as JaxEncoder
+from x264_tpu.encoder.encoder import Picture
+from x264_tpu.entropy.nal import annexb_bytes
+from x264_tpu_torch import param_default_preset
+from x264_tpu_torch.encoder.encoder import Encoder
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+import refdec  # noqa: E402
+
+
+def ippp(preset, w=64, h=48, **over):
+    """Preset medium at w x h, IPPP, CQP 26, CAVLC, no scene cut, no frame
+    threads (tests/test_recovery.py's configuration), then `over`
+    (a__b=v sets p.a.b = v)."""
+    p = preset("medium")
+    p.width, p.height = w, h
+    p.cabac = False
+    p.bframe = 0
+    p.keyint_max = 250
+    p.scenecut_threshold = 0
+    p.rc.rc_method = 0
+    p.rc.qp_constant = 26
+    p.threads = 1
+    for key, val in over.items():
+        obj = p
+        *path, last = key.split("__")
+        for name in path:
+            obj = getattr(obj, name)
+        setattr(obj, last, val)
+    return p
+
+
+def encode_all(enc, frames, before=None):
+    """Headers + every frame, drained -> (stream, recon planes, PicOuts).
+    before(enc, i), if given, runs ahead of the encode call of frame i."""
+    stream = annexb_bytes(enc.headers())
+    recons, outs = [], []
+    for i, f in enumerate(frames + [None]):
+        if before is not None and f is not None:
+            before(enc, i)
+        while True:
+            nals, out = enc.encode(None if f is None else Picture(f, pts=i))
+            stream += annexb_bytes(nals)
+            if out is not None:
+                recons.append([np.asarray(r) for r in out.recon])
+                outs.append(out)
+            if f is not None or out is None:
+                break
+    return stream, recons, outs
+
+
+def both(make, frames, before=None):
+    """make(preset_fn) -> Params, through x264_tpu's Encoder and the port's
+    on the CPU -> {"ref": (stream, recons, outs), "got": ..., "jax_enc",
+    "enc"}."""
+    pj, pt = make(jax_preset), make(param_default_preset)
+    pj.full_recon = pt.full_recon = True
+    jax_enc = JaxEncoder(pj)
+    ref = encode_all(jax_enc, frames, before)
+    enc = Encoder(pt, device="cpu")
+    got = encode_all(enc, frames, before)
+    return dict(ref=ref, got=got, jax_enc=jax_enc, enc=enc)
+
+
+def assert_same_output(run):
+    """Bytes, frame types, pts, QPs, keyframe flags and reconstructions
+    equal x264_tpu's."""
+    (rs, rrec, routs), (gs, grec, gouts) = run["ref"], run["got"]
+    for key in ("i_type", "pts", "dts", "qp", "b_keyframe"):
+        assert ([getattr(o, key) for o in gouts]
+                == [getattr(o, key) for o in routs]), key
+    assert gs == rs
+    assert len(grec) == len(rrec)
+    for i, (a, b) in enumerate(zip(rrec, grec)):
+        for c in range(3):
+            np.testing.assert_array_equal(a[c], b[c],
+                                          err_msg=f"frame {i} plane {c}")
+
+
+def refdec_matches(stream, recons):
+    """Per frame (coding order): does tools/refdec.py decode it to the
+    encoder's reconstruction?"""
+    decoded = refdec.Decoder().decode(stream)
+    assert len(decoded) == len(recons)
+    return [all(np.array_equal(d[c], r[c]) for c in range(3))
+            for d, r in zip(decoded, recons)]

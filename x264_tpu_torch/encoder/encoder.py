@@ -2,16 +2,16 @@
 (x264_tpu/encoder/encoder.py), on an explicit torch device.
 
 Public API as in x264_tpu: Encoder(params, device=...), .headers(),
-.encode(pic) -> (nals, PicOut), .delayed_frames(), .close(). The frame
+.encode(pic) -> (nals, PicOut), .delayed_frames(), .reconfig(),
+.intra_refresh(), .invalidate_reference(), .close(), and .log. The frame
 types, `Picture`, `PicOut`, `EncoderError` and `validate_parameters` are
-copied from x264_tpu's module unchanged; parameters, SPS/PPS/SEI writers
-and rate control are the port's own copies of x264_tpu's host modules.
-I / IDR, P and non-reference B frames are encoded, CAVLC and CABAC, with
-the adaptive B-run decision and MB-tree, so `Params()`' defaults run.
-Still raising NotImplementedError, each naming its ROADMAP item: periodic
-intra refresh and SSIM (here), PCM (frame_encode.dispatch_frame), noise
-reduction and P frames without partitions or below subme 7
-(inter.dispatch_pframe).
+copied from x264_tpu's module unchanged; parameters, SPS/PPS/SEI writers,
+rate control and the logger are the port's own copies of x264_tpu's host
+modules. I / IDR, P and non-reference B frames are encoded at every
+preset, CAVLC and CABAC, with the adaptive B-run decision, MB-tree, noise
+reduction, periodic intra refresh (the column sweep and its recovery
+points), PCM frames and SSIM. What x264_tpu refuses the port refuses too:
+interlaced, and P frames under force_pcm.
 """
 
 from __future__ import annotations
@@ -180,12 +180,8 @@ class Encoder:
     def __init__(self, params: P.Params, device="cuda") -> None:
         self.device = resolve_device(device)
         self.p = validate_parameters(params)
-        if self.p.intra_refresh:
-            raise NotImplementedError("periodic intra refresh is not "
-                                      "ported yet (ROADMAP item 12)")
-        if self.p.analyse.ssim:
-            raise NotImplementedError("SSIM is not ported yet "
-                                      "(ROADMAP item 7)")
+        from ..utils.log import Logger
+        self.log = Logger(self.p.log_level)
         self.sps = sets.sps_init(self.p, self.p.sps_id)
         self.pps = sets.pps_init(self.p, self.sps, self.p.sps_id)
         self.mb_w, self.mb_h = self.p.mb_width, self.p.mb_height
@@ -208,6 +204,11 @@ class Encoder:
         self._pipe: list = []       # in-flight frame jobs
         self._pipe_depth = 1 if self.p.threads != 1 else 0
         self._ready: list = []      # decided, not yet dispatched
+        # the periodic intra refresh sweep: pos == mb_w is "no sweep
+        # active", prev_end the newest reference's refreshed end column
+        self._pir_state = {"pos": float(self.mb_w), "since": 0,
+                           "prev_end": 0}
+        self._queued_refresh = False
         self._idr_display_base = 0
         self._coding_out = 0
         self._closed = False
@@ -302,13 +303,56 @@ class Encoder:
                                 ref_bwd=ref_bwd,
                                 tree_off=entry.get("tree_off"))
 
+    def _pir_advance(self, ftype, idx):
+        """Advance the periodic intra refresh sweep by one frame (x264_tpu
+        Encoder._pir_advance): a keyframe becomes a P frame that restarts
+        the column sweep. Returns (ftype, pir geometry (start_col, end_col,
+        ref_end_col or None) for dispatch_pframe or None, whether the frame
+        is a recovery point)."""
+        st = self._pir_state
+        mbw = self.mb_w
+        force = False
+        if ftype in (TYPE_IDR, TYPE_I):
+            if not self._dpb:
+                # nothing decodable to sweep over: a real IDR
+                st.update(pos=float(mbw), since=0, prev_end=0)
+                return ftype, None, False
+            ftype = TYPE_P
+            force = True
+        keyint = max(self.p.keyint_max, 1)
+        inc = max((mbw - 1) / keyint, 1.0)
+        pos = st["pos"]
+        since = st["since"] + 1
+        recovery = False
+        if force or since >= keyint or (self._queued_refresh
+                                        and pos + 0.5 >= mbw):
+            pos, since = 0.0, 0
+            self._queued_refresh = False
+            recovery = True
+            self.last_keyframe = idx
+        start_col = int(pos + 0.5)
+        pos += inc
+        end_col = int(pos + 0.5)
+        if end_col >= mbw - 1:
+            pos = float(mbw)
+            end_col = mbw - 1
+        ref_end = st["prev_end"]
+        st.update(pos=pos, since=since, prev_end=end_col)
+        return ftype, (start_col, end_col,
+                       ref_end if ref_end > 0 else None), recovery
+
     def _enqueue_frame(self, planes, ftype, pic, idx, ref_fwd=None,
                        ref_bwd=None, tree_off=None) -> None:
         """Dispatch one frame in coding order and append its job. A B
         frame (between the DPB entries tagged ref_fwd and ref_bwd) is no
         reference: it advances neither frame_num nor the decoder's list0[0]
-        and leaves nothing in the DPB."""
+        and leaves nothing in the DPB. Under intra refresh a keyframe after
+        the first is a P frame that restarts the sweep."""
         from . import frame_encode
+        pir_geom = None
+        recovery = False
+        if self.p.intra_refresh:
+            ftype, pir_geom, recovery = self._pir_advance(ftype, idx)
         is_idr = ftype == TYPE_IDR
         if is_idr:
             self.last_keyframe = idx
@@ -321,7 +365,7 @@ class Encoder:
         pre_state = (self.frame_num, self.poc)
         finalize, retry, recon_dev, ref_fwd = frame_encode.dispatch_frame(
             self, planes, ftype, qp, ref_tag=ref_fwd, tree_off=tree_off,
-            ref_bwd=ref_bwd)
+            pir=pir_geom, ref_bwd=ref_bwd)
         if ftype != TYPE_B:
             # this frame is now the decoder's most recent reference, the
             # default list0[0] of the next frame (apply_ref_list_mod)
@@ -346,8 +390,7 @@ class Encoder:
             "dts": dts, "ftype": ftype, "is_idr": is_idr, "qp": qp,
             "planes": planes, "tag": tag, "pre_state": pre_state,
             "ref_tag": ref_fwd, "ref_bwd": ref_bwd, "tree_off": tree_off,
-            "pir": None,
-            "opaque": pic.opaque})
+            "pir": pir_geom, "recovery": recovery, "opaque": pic.opaque})
 
     def _finalize_job(self, job) -> tuple[list, PicOut]:
         from .intra import PayloadOverflow, aud_nal
@@ -358,6 +401,13 @@ class Encoder:
             nals, recon = job["finalize"]()
         except PayloadOverflow:
             nals, recon, qp = self._overflow_reencode(job)
+        if job.get("recovery"):
+            # a sweep restart: a recovery point the stream can be joined
+            # at (time_to_recovery = min(mb_w - 1, keyint) - 1)
+            ttr = min(self.mb_w - 1, self.p.keyint_max) - 1
+            nals = [nal_mod.nal_encode(
+                nal_mod.NAL_SEI, nal_mod.NAL_PRIORITY_DISPOSABLE,
+                sets.sei_recovery_point(max(ttr, 0)))] + nals
         if self.sps.nal_hrd_parameters:
             # HRD SEIs: buffering period at every IDR, picture timing on
             # every AU; delays in ticks of 2 fields per frame
@@ -391,7 +441,7 @@ class Encoder:
             for nal in nals:
                 self.p.nalu_process(self, nal, job.get("opaque"))
         out = PicOut(pts=pts, dts=job.get("dts", pts), i_type=ftype,
-                     b_keyframe=is_idr, qp=qp,
+                     b_keyframe=is_idr or bool(job.get("recovery")), qp=qp,
                      recon=[r[:self.p.height, :self.p.width] if i == 0 else
                             r[:self._chroma_h(), :self._chroma_w()]
                             for i, r in enumerate(recon)] if recon else None)
@@ -413,6 +463,16 @@ class Encoder:
                 self.stats["ssd"][i] += float((d * d).sum())
             self.stats["psnr_frames"] += 1
             out.psnr = self._frame_psnr(src, rec)
+        if self.p.analyse.ssim and recon is not None:
+            from ..ops.pixel import ssim as ssim_op
+            rec_y = out.recon[0]
+            if not isinstance(rec_y, torch.Tensor):
+                rec_y = torch.from_numpy(np.ascontiguousarray(rec_y))
+            out.ssim = float(ssim_op(self._crop(planes)[0],
+                                     rec_y.to(self.device)))
+            self.stats["ssim_sum"] = self.stats.get("ssim_sum", 0.0) \
+                + out.ssim
+            self.stats["ssim_frames"] = self.stats.get("ssim_frames", 0) + 1
         return nals, out
 
     # ------------------------------------------------------------ helpers
@@ -552,6 +612,44 @@ class Encoder:
         sh.alpha_c0_offset = self.p.deblocking_filter_alphac0 * 2
         sh.beta_offset = self.p.deblocking_filter_beta * 2
         return sh
+
+    def reconfig(self, new_params: P.Params) -> None:
+        """Runtime re-config of the mutable subset (x264_tpu
+        Encoder.reconfig)."""
+        mutable = ["rc", "analyse", "deblocking_filter",
+                   "deblocking_filter_alphac0", "deblocking_filter_beta",
+                   "keyint_max", "scenecut_threshold"]
+        for name in mutable:
+            setattr(self.p, name, getattr(new_params, name))
+
+    def intra_refresh(self) -> None:
+        """Queue an intra refresh: under --intra-refresh the next P frame
+        after the current sweep completes restarts the column sweep;
+        without it, the next frame is coded IDR."""
+        if self.p.intra_refresh:
+            self._queued_refresh = True
+        else:
+            self.last_keyframe = -(1 << 30)
+            self._kf_decided = -(1 << 30)
+
+    def invalidate_reference(self, pts: int) -> int:
+        """Mark reconstructed frames with pts >= `pts` unusable (the decoder
+        lost them). Older entries stay usable; the next P frame references
+        the newest survivor through ref_pic_list_modification
+        (inter.apply_ref_list_mod). With none left, or a one-frame DPB, the
+        next frame is forced IDR. Returns 0 when something was dropped or
+        nothing is left, else -1 (x264_tpu Encoder.invalidate_reference)."""
+        keep = [r for r in self._dpb if r["tag"] < pts]
+        dropped = len(self._dpb) - len(keep)
+        self._dpb = keep
+        if dropped and self.sps.num_ref_frames < 2:
+            # a survivor would be outside the decoder's one-frame sliding
+            # window: the only conformant recovery is an IDR
+            self._dpb = []
+        if not self._dpb:
+            self.last_keyframe = -(1 << 30)
+            self._kf_decided = -(1 << 30)
+        return 0 if dropped or not self._dpb else -1
 
     def close(self) -> dict:
         self._closed = True

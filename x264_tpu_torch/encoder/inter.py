@@ -1,10 +1,12 @@
-"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC and CABAC, at preset
-medium's settings: the seeded full-pel search (dia / hex / umh) or the
+"""P-frame encoding (x264_tpu/encoder/inter.py), CAVLC and CABAC, at every
+preset's settings: the seeded full-pel search (dia / hex / umh) or the
 exhaustive one (esa / tesa: `motion_search`, which B frames always run),
 the 16x8 / 8x16 partitions (and 8x8 under CAVLC: x264_tpu's CABAC writer
-has no sub_mb_type, so its CABAC frames run without P8x8), two references,
-weighted prediction, intra-in-P with I_4x4, the subme-7 RD tier, trellis
-quantization of inter luma (CABAC only), dct decimation and the deblock.
+has no sub_mb_type, so its CABAC frames run without P8x8) or the 16x16
+lane alone (no ANALYSE_PSUB16x16: ultrafast, superfast), two references,
+weighted prediction, intra-in-P with I_4x4, the subme-7 RD tier (subme 7
+and up), trellis quantization of inter luma (CABAC only), noise
+reduction, periodic intra refresh, dct decimation and the deblock.
 
 `encode_pframe` is the whole per-frame pipeline on the frame's device:
   1. full-pel ME per reference (`p_fullpel_core` -> motion_search_seeded,
@@ -12,10 +14,10 @@ quantization of inter luma (CABAC only), dct decimation and the deblock.
   2. quarter-pel refinement of every partition lane, then the per-MB
      reference choice (`p_subpel_core`, `p_me_select`);
   3. the intra candidate (`p_intra_core`) and the RD re-rank (`p_rd_core`);
-  4. transform, decimation and chroma MC (`p_xfrm_core`);
+  4. transform, noise reduction, decimation and chroma MC (`p_xfrm_core`);
   5. the mixed wavefront commit and cbp / skip (`p_merge_core` ->
-     ops/commit.commit: the CUDA kernel's mixed + I_4x4 variant on a card,
-     commit_ref on the CPU);
+     ops/commit.commit: the CUDA kernel's mixed variant, with or without
+     I_4x4, on a card, commit_ref on the CPU);
   6. CAVLC on the device (entropy/cavlc_dev.encode_pframe_entropy_dev),
      or for CABAC the decoder-carried QP and the decision tensors
      (`p_decisions_core`) that the host C++ writer codes in finalize
@@ -25,9 +27,6 @@ quantization of inter luma (CABAC only), dct decimation and the deblock.
 x264_tpu's scans (lax.scan over offsets and candidates) are Python loops
 over the same static tables here, in the same order, and a step replaces
 the best only when its cost is strictly lower, so ties resolve as in JAX.
-Still raising NotImplementedError in `dispatch_pframe`, each naming its
-ROADMAP item: periodic intra refresh, noise reduction, and P frames
-without partitions or below subme 7.
 """
 
 from __future__ import annotations
@@ -143,7 +142,7 @@ def _first_min_along(cost, dim=0):
 
 
 def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
-                  shapes: bool = False):
+                  shapes: bool = False, pir_cap=None):
     """Exhaustive full-pel search (x264_tpu inter.motion_search, the ESA):
     every offset of [-R, R]^2 as a shifted-plane SAD map, in two passes.
     The first costs the MV rate against zero; the median predictor of its
@@ -154,7 +153,8 @@ def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
     a candidate only when its cost is strictly lower. Here one step takes a
     whole row of dx: the row's first minimum, then the same strict
     comparison against the best so far, which picks the same winner.
-    `hpel` is unused, as in x264_tpu.
+    `hpel` is unused, as in x264_tpu. pir_cap [mbh, mbw] (periodic intra
+    refresh): an offset with dx above the MB's cap costs 1 << 28 more.
 
     Returns mv [mbh, mbw, 2] full-pel, or with shapes=True a dict
     {"16x16": [mbh,mbw,2], "16x8" / "8x16": [mbh,mbw,2,2], "8x8":
@@ -191,6 +191,9 @@ def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
             quad = ad.reshape(mbh, 2, 8, K, mbw, 2, 8).sum(6, dtype=i16) \
                 .sum(2, dtype=_i32).permute(2, 0, 3, 1, 4)
             mvcost = lam * (bits_x + bits_y[j])          # [K, mbh, mbw]
+            if pir_cap is not None:
+                mvcost = mvcost + torch.where(
+                    offs[:, None, None] > pir_cap, 1 << 28, 0)
             cand = {"16x16": quad.sum((3, 4), dtype=_i32) + mvcost}
             if want_shapes:
                 m4 = mvcost[..., None]
@@ -217,9 +220,10 @@ def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
 
 
 def motion_search_seeded(padded_ref, y_src, lam, me_range: int,
-                         shapes: bool = False, refine: int = 4):
+                         shapes: bool = False, pir_cap=None, refine: int = 4):
     """Hierarchical full-pel search: an exhaustive half-res scan seeds a
-    +-refine full-res refine per MB (x264_tpu inter.motion_search_seeded).
+    +-refine full-res refine per MB (x264_tpu inter.motion_search_seeded);
+    pir_cap as in motion_search, on the refine only.
     Returns mv [mbh, mbw, 2] full-pel, or with shapes=True a dict
     {"16x16": [mbh,mbw,2], "16x8"/"8x16": [mbh,mbw,2,2], "8x8":
     [mbh,mbw,4,2]}."""
@@ -273,6 +277,9 @@ def motion_search_seeded(padded_ref, y_src, lam, me_range: int,
         mvcost = lam * (_mv_cost_bits(cand_mv[..., 0] * 4 - mvp_est[..., 0])
                         + _mv_cost_bits(cand_mv[..., 1] * 4
                                         - mvp_est[..., 1]))
+        if pir_cap is not None:
+            mvcost = mvcost + torch.where(cand_mv[..., 0] > pir_cap,
+                                          1 << 28, 0)
         _keep_best(best, "16x16", quad.sum((2, 3), dtype=_i32) + mvcost,
                    cand_mv)
         if shapes:
@@ -611,32 +618,47 @@ def _first_min(costs):
     return idx.to(_i32), best
 
 
-def p_fullpel_core(y, ref_y_pad, lam, *, me_range, me_seeded=True):
+def p_fullpel_core(y, ref_y_pad, lam, pir_cap=None, *, me_range,
+                   me_seeded=True, shapes=True):
     """Full-pel ME against one reference (the seeded search, or the
     exhaustive one without me_seeded) and the qpel MVP estimate of its
-    16x16 winners. Returns (mvs dict, mvp_q_est [n, 2])."""
+    16x16 winners; without shapes only the 16x16 lane is searched.
+    Returns (mvs dict, mvp_q_est [n, 2])."""
     if me_seeded:
-        mvs = motion_search_seeded(ref_y_pad, y, lam, me_range, shapes=True)
+        mvs = motion_search_seeded(ref_y_pad, y, lam, me_range,
+                                   shapes=shapes, pir_cap=pir_cap)
     else:
-        mvs = motion_search(ref_y_pad, None, y, lam, me_range, shapes=True)
+        mvs = motion_search(ref_y_pad, None, y, lam, me_range,
+                            shapes=shapes, pir_cap=pir_cap)
+    if not shapes:
+        mvs = {"16x16": mvs}
     mvp_q_est, _ = mv_predictors(mvs["16x16"] * 4)
     return mvs, mvp_q_est.reshape(-1, 2)
 
 
 def p_subpel_core(y, ref_hpel, mvs, mvp_q_est, lam, w, o, *, me_range,
-                  weighted=True, return_cands=False, p8x8=True):
+                  weighted=True, return_cands=False, p8x8=True,
+                  partitions=True):
     """One reference: qpel refinement of all partition lanes, the SATD
     partition choice and weighted prediction (x264_tpu
-    inter.p_subpel_core with partitions; p8x8 adds the P_8x8 candidate).
-    Returns a dict of per-MB cost, pred_y, mvq, part_mode, mv_parts; with
-    return_cands the 3 or 4 assembled candidates cand_pred [M,n,16,16] and
-    cand_mv [M,n,4,2]."""
+    inter.p_subpel_core; p8x8 adds the P_8x8 candidate; without
+    partitions only the 16x16 lane is refined, and no candidates are
+    returned). Returns a dict of per-MB cost, pred_y, mvq, part_mode,
+    mv_parts; with return_cands the 3 or 4 assembled candidates cand_pred
+    [M,n,16,16] and cand_mv [M,n,4,2]."""
     n = mvp_q_est.shape[0]
 
     def wp_apply(p):
         if weighted:
             return (((p * w + 64) >> 7) + o).clamp(0, 255)
         return p
+
+    if not partitions:
+        mvq, pred_y, inter_cost = subpel_refine_mc(
+            ref_hpel, y, mvs["16x16"], lam, me_range, mvp_q=mvp_q_est)
+        return {"mvq": mvq, "pred_y": wp_apply(pred_y), "cost": inter_cost,
+                "part_mode": torch.zeros((n,), dtype=_i32, device=y.device),
+                "mv_parts": mvq[:, None, :].expand(n, 4, 2)}
 
     (mvq, pred16, cost16, q_parts, pp, c_parts) = subpel_refine_all(
         ref_hpel, y, mvs, lam, me_range, mvp_q=mvp_q_est, p8x8=p8x8)
@@ -717,13 +739,13 @@ def _luma_bits(lv_z, mbh, mbw, lo=0):
 
 
 def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
-              i16_mode, *, mbw, mbh, two_refs):
-    """RD re-rank of the partition shape and of intra vs inter (x264_tpu
-    inter.p_rd_core with intra_rd) over the M = 3 or 4 candidates it is
+              i16_mode, *, mbw, mbh, two_refs, intra_rd=True):
+    """RD re-rank of the partition shape and, with intra_rd, of intra vs
+    inter (x264_tpu inter.p_rd_core) over the M = 3 or 4 candidates it is
     given: every candidate is coded in full and priced SSD + lambda2 *
     (CAVLC luma bits + MVD / header / ref bits), under CABAC too, as in
     x264_tpu. Returns (part_mode [n], pred_y [n,16,16], mv_parts [n,4,2],
-    is_intra_rd [mbh, mbw])."""
+    is_intra_rd [mbh, mbw], None without intra_rd)."""
     dev = y.device
     M = cand_pred.shape[0]
     n = mbw * mbh
@@ -756,6 +778,8 @@ def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
     ar = torch.arange(n, device=dev)
     pred_y = cand_pred[part_mode.long(), ar]
     mv_parts = cand_mv[part_mode.long(), ar]
+    if not intra_rd:
+        return part_mode, pred_y, mv_parts, None
 
     # the intra candidate at the same tier: exact I16 luma from source
     # neighbours, true CAVLC bits plus a flat 12-bit header
@@ -821,55 +845,91 @@ def _merge_plane(mb_tensor, s, hh, ww):
 def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
                 part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
                 use_i4, best_intra, qp_mb, qpc_mb, is_intra_override=None,
-                trl_tabs=None, *, mbw, mbh, two_refs, decimate, p8x8=True):
+                trl_tabs=None, pir_band=None, nr_offset=None, *, mbw, mbh,
+                two_refs, decimate, p8x8=True, partitions=True,
+                intra_in_p=True, pir=False, nr=False):
     """Intra vs inter -> MVP / skip predictor / MVD -> chroma MC ->
-    transform, quant (given trl_tabs = frame_ctx_costs(False, qp, cat=2),
-    the trellis: the RD-optimal requantization of the inter luma levels)
-    and decimation -> the inter reconstruction (x264_tpu inter.p_xfrm_core
-    with partitions and intra-in-P; without p8x8 no MB has part_mode 3 and
-    chroma is predicted from 2 partition slots, not 4).
+    transform, noise reduction (nr: denoise_dct by nr_offset), quant (given
+    trl_tabs = frame_ctx_costs(False, qp, cat=2), the trellis: the
+    RD-optimal requantization of the inter luma levels) and decimation ->
+    the inter reconstruction (x264_tpu inter.p_xfrm_core; without p8x8 no
+    MB has part_mode 3 and chroma is predicted from 2 partition slots, not
+    4; without partitions every MB is one 16x16 partition). Without
+    intra_in_p no MB is intra; pir forces the column band pir_band intra.
     ref1_cuv_pad None: no MB takes reference 1. Returns the dict
     p_merge_core reads."""
     H, W = y.shape
     n = mbw * mbh
     dev = y.device
-    part_grid = part_mode.reshape(mbh, mbw)
-    # which partition slot each 4x4 cell belongs to, per mode
-    r4 = torch.arange(4, device=dev)
-    pm4 = part_grid[..., None, None]
-    row_hi = (r4[:, None] >= 2).to(_i32)
-    col_hi = (r4[None, :] >= 2).to(_i32)
-    pid4 = torch.where(pm4 == 1, row_hi, torch.where(
-        pm4 == 2, col_hi, torch.where(pm4 == 3, 2 * row_hi + col_hi, 0)))
-    mvp5 = mv_parts.reshape(mbh, mbw, 4, 2)
-    mv4 = mvp5[:, :, 0][:, :, None, None, :].expand(mbh, mbw, 4, 4, 2)
-    for k in range(1, 4):
-        mv4 = torch.where((pid4 == k)[..., None],
-                          mvp5[:, :, k][:, :, None, None, :], mv4)
-    mv4_grid = mv4.transpose(1, 2).reshape(mbh * 4, mbw * 4, 2)
     satd_cost = inter_cost.sum(dtype=_i32)
 
     # intra vs inter: the RD tier's verdict when it ran, else SATD
-    if is_intra_override is not None:
-        is_intra = is_intra_override
+    if intra_in_p:
+        if is_intra_override is not None:
+            is_intra = is_intra_override
+        else:
+            is_intra = (best_intra.reshape(-1) < inter_cost).reshape(mbh,
+                                                                     mbw)
+        i4_mask = is_intra & use_i4
     else:
-        is_intra = (best_intra.reshape(-1) < inter_cost).reshape(mbh, mbw)
-    i4_mask = is_intra & use_i4
+        i16_mode = torch.zeros((mbh, mbw), dtype=_i32, device=dev)
+        chroma_mode = torch.zeros_like(i16_mode)
+        is_intra = torch.zeros((mbh, mbw), dtype=torch.bool, device=dev)
+        i4_mask = torch.zeros_like(is_intra)
+        i4_modes = None
+    if pir:
+        # the refresh sweep's column band is intra whatever it chose (an
+        # MB it forces is I16 unless the decision already took I_4x4)
+        assert intra_in_p, "PIR requires the intra-in-P candidate"
+        is_intra = is_intra | pir_band
     is_intra_f = is_intra.reshape(-1)
     refidx = torch.where(is_intra_f, 0, refidx).to(_i32)
     ref_grid = refidx.reshape(mbh, mbw)
-    inter4 = _rep4(~is_intra)
-    mv4_grid = torch.where(inter4[..., None], mv4_grid, 0)
-    mvp_pp, pskip = mv_predictors_part(
-        mv4_grid, inter4, part_grid, ref4=_rep4(ref_grid) if two_refs
-        else None, cur_ref=ref_grid if two_refs else None)
-    mvd_parts = (mvp5 - mvp_pp).reshape(n, 4, 2)
-    mv_field = mv_parts[:, 0].reshape(mbh, mbw, 2)
+    two_ref_grid = ref_grid if two_refs else None
+    if partitions:
+        part_grid = part_mode.reshape(mbh, mbw)
+        # which partition slot each 4x4 cell belongs to, per mode
+        r4 = torch.arange(4, device=dev)
+        pm4 = part_grid[..., None, None]
+        row_hi = (r4[:, None] >= 2).to(_i32)
+        col_hi = (r4[None, :] >= 2).to(_i32)
+        pid4 = torch.where(pm4 == 1, row_hi, torch.where(
+            pm4 == 2, col_hi, torch.where(pm4 == 3, 2 * row_hi + col_hi, 0)))
+        mvp5 = mv_parts.reshape(mbh, mbw, 4, 2)
+        mv4 = mvp5[:, :, 0][:, :, None, None, :].expand(mbh, mbw, 4, 4, 2)
+        for k in range(1, 4):
+            mv4 = torch.where((pid4 == k)[..., None],
+                              mvp5[:, :, k][:, :, None, None, :], mv4)
+        inter4 = _rep4(~is_intra)
+        mv4_grid = torch.where(
+            inter4[..., None],
+            mv4.transpose(1, 2).reshape(mbh * 4, mbw * 4, 2), 0)
+        mvp_pp, pskip = mv_predictors_part(
+            mv4_grid, inter4, part_grid,
+            ref4=None if two_ref_grid is None else _rep4(two_ref_grid),
+            cur_ref=two_ref_grid)
+        mvd_parts = (mvp5 - mvp_pp).reshape(n, 4, 2)
+        mvd, mvd2, mvd23 = (mvd_parts[:, 0], mvd_parts[:, 1],
+                            mvd_parts[:, 2:4])
+        mv_field = mv_parts[:, 0].reshape(mbh, mbw, 2)
+    else:
+        mv_field = mvq.reshape(mbh, mbw, 2)
+        mvp, pskip = mv_predictors(mv_field, ~is_intra, ref_grid=two_ref_grid,
+                                   cur_ref=two_ref_grid)
+        mvd = (mv_field - mvp).reshape(n, 2)
+        mvd2 = torch.zeros((n, 2), dtype=_i32, device=dev)
+        mvd23 = torch.zeros((n, 2, 2), dtype=_i32, device=dev)
+        part_mode = torch.zeros((n,), dtype=_i32, device=dev)
+        mv4_grid = None
 
     # ---- luma transform and quant ----
     src_y = _mb_tiles(y, 16).reshape(n, 16, 16)
     qp = qp_mb.reshape(-1).to(_i32)
     w = dct.dct4x4(_luma_blocks(src_y.to(_i32) - pred_y))
+    nr_sums = None
+    if nr:
+        # noise reduction before quant, inter luma only
+        w, nr_sums = quant.denoise_dct(w, nr_offset)
     lv = quant.quant4x4(w, qp[:, None], intra=False)
     if trl_tabs is not None:
         # one batched Viterbi over all 16 n 4x4 blocks of the frame
@@ -889,6 +949,8 @@ def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
         pmf == 2, chi, torch.where(pmf == 3, 2 * rhi + chi, 0)))[:, None]
 
     def chroma_pred(cuv_pad):
+        if not partitions:
+            return chroma_mc_warp(cuv_pad, mvq, mbh, mbw)
         out = chroma_mc_warp(cuv_pad, mv_parts[:, 0], mbh, mbw)
         for k in range(1, 4 if p8x8 else 2):
             out = torch.where(pidc == k, chroma_mc_warp(
@@ -936,11 +998,10 @@ def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
         "recon_v": _merge_plane(vrec, 8, H // 2, W // 2).to(u8),
         "is_intra": is_intra, "i4_mask": i4_mask, "i16_mode": i16_mode,
         "chroma_mode": chroma_mode, "i4_modes": i4_modes,
-        "mvd": mvd_parts[:, 0], "mvd2": mvd_parts[:, 1],
-        "mvd23": mvd_parts[:, 2:4], "part_mode": part_mode,
+        "mvd": mvd, "mvd2": mvd2, "mvd23": mvd23, "part_mode": part_mode,
         "refidx": refidx, "ref_grid": ref_grid, "mv_field": mv_field,
         "mv4_grid": mv4_grid, "pskip": pskip, "qp": qp,
-        "satd_cost": satd_cost,
+        "nr_sums": nr_sums, "satd_cost": satd_cost,
     }
 
 
@@ -958,29 +1019,40 @@ def mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, i4):
     return args, kw
 
 
-def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4):
+def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4,
+                 intra_in_p=True):
     """The mixed wavefront commit (intra MBs against their true decoded
     neighbours, inter MBs copied) and the level merge, then cbp / skip
     and the MB histogram (x264_tpu inter.p_merge_core).
 
     x264_tpu runs the commit under a lax.cond only when some MB is intra;
     the commit with no intra lane gives what its skip branch gives (the
-    inter planes and zero levels), so the port commits every P frame and
-    never asks the device whether any MB is intra."""
+    inter planes and zero levels), so the port commits every P frame of
+    intra_in_p and never asks the device whether any MB is intra. Without
+    intra_in_p nothing is committed."""
     n = mbw * mbh
+    dev = y.device
     is_intra = xm["is_intra"]
     is_intra_f = is_intra.reshape(-1)
     i4_mask = xm["i4_mask"]
-    args, kw = mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw,
-                                   mbh=mbh, i4=i4)
-    icoeffs, (recon_y, recon_u, recon_v) = commit(*args, **kw)
-    im3 = is_intra_f[:, None, None]
-    im4 = is_intra_f[:, None, None, None]
-    lv = torch.where(im4, icoeffs["ac"], xm["lv"])
-    udc = torch.where(im3, icoeffs["udc"], xm["udc"])
-    vdc = torch.where(im3, icoeffs["vdc"], xm["vdc"])
-    uac = torch.where(im4, icoeffs["uac"], xm["uac"])
-    vac = torch.where(im4, icoeffs["vac"], xm["vac"])
+    lv, udc, vdc, uac, vac = (xm["lv"], xm["udc"], xm["vdc"], xm["uac"],
+                              xm["vac"])
+    if intra_in_p:
+        args, kw = mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw,
+                                       mbh=mbh, i4=i4)
+        icoeffs, (recon_y, recon_u, recon_v) = commit(*args, **kw)
+        im3 = is_intra_f[:, None, None]
+        im4 = is_intra_f[:, None, None, None]
+        lv = torch.where(im4, icoeffs["ac"], lv)
+        udc = torch.where(im3, icoeffs["udc"], udc)
+        vdc = torch.where(im3, icoeffs["vdc"], vdc)
+        uac = torch.where(im4, icoeffs["uac"], uac)
+        vac = torch.where(im4, icoeffs["vac"], vac)
+        dc_blk = icoeffs["dc"]
+    else:
+        recon_y, recon_u, recon_v = (xm["recon_y"], xm["recon_u"],
+                                     xm["recon_v"])
+        dc_blk = torch.zeros((n, 4, 4), dtype=_i32, device=dev)
 
     # ---- cbp / skip on the merged levels ----
     nnz_l = (lv.reshape(n, 16, 16) != 0).sum(2, dtype=_i32)
@@ -1012,7 +1084,7 @@ def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4):
         "skip": skip, "mvd": xm["mvd"], "mvd2": xm["mvd2"],
         "mvd23": xm["mvd23"], "cbp_luma": cbp_luma,
         "cbp_chroma": cbp_chroma, "qp": xm["qp"], "lv": lv,
-        "dc_blk": icoeffs["dc"],
+        "dc_blk": dc_blk,
         "cdc_blk": torch.stack([udc.reshape(n, 2, 2),
                                 vdc.reshape(n, 2, 2)], dim=1),
         "cac_blk": torch.stack([uac.reshape(n, 4, 4, 4),
@@ -1023,7 +1095,9 @@ def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4):
         "refidx": refidx, "part_mode": part_mode,
         "recon_y": recon_y, "recon_u": recon_u, "recon_v": recon_v,
         "nnz_l": nnz_l, "mv_field": xm["mv_field"],
-        "mv4_grid": xm["mv4_grid"], "ref_grid": xm["ref_grid"],
+        "mv4_grid": (_rep4(xm["mv_field"]) if xm["mv4_grid"] is None
+                     else xm["mv4_grid"]),
+        "ref_grid": xm["ref_grid"], "nr_sums": xm["nr_sums"],
         "satd_cost": xm["satd_cost"],
         "skip_n": skip.sum(), "intra_n": is_intra_f.sum(),
         "i4_n": is_i4_f.sum(),
@@ -1106,11 +1180,12 @@ def p_deblock_core(recon_y, recon_u, recon_v, is_intra, nnz_l, mv, eff_qp,
 def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
                   mbh, cap_words, me_range, deblock, a_off, b_off, cqpo,
                   decimate, i4, two_refs, entropy=True, p8x8=True,
-                  trl_tabs=None, me_seeded=True):
-    """One P frame on the planes' device (x264_tpu inter._p_pipeline at
-    the bench's settings). refs: the live L0 references, 1 or 2 DPB
-    entries (a second one only with two_refs); wp: (w, o) luma weight of
-    reference 0 at denom 7, or None.
+                  trl_tabs=None, me_seeded=True, partitions=True, rd=True,
+                  intra_in_p=True, pir_cap=None, pir_band=None,
+                  nr_offset=None):
+    """One P frame on the planes' device (x264_tpu inter._p_pipeline). refs:
+    the live L0 references, 1 or 2 DPB entries (a second one only with
+    two_refs); wp: (w, o) luma weight of reference 0 at denom 7, or None.
 
     x264_tpu runs a frame with one usable reference of a two-reference
     stream as ref1 := ref0 under a traced flag that pins the choice to ref 0
@@ -1121,21 +1196,28 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     count; entropy=False (CABAC) returns the decision dict of
     `p_decisions_dict` in place of the words, and total_bits None.
     trl_tabs (frame_ctx_costs) turns the trellis on; me_seeded False takes
-    the exhaustive full-pel search (me_method esa / tesa).
-    Returns (words, total_bits, recon planes, stats)."""
+    the exhaustive full-pel search (me_method esa / tesa). partitions
+    False searches and codes 16x16 only; rd runs the subme-7 RD tier (with
+    partitions only); intra_in_p False drops the intra candidate and the
+    commit. pir_cap / pir_band (periodic intra refresh): the per-MB cap on
+    full-pel dx and the forced-intra column band. nr_offset [4, 4] turns
+    noise reduction on. Returns (words, total_bits, recon planes, stats)."""
     n = mbw * mbh
     ref1_valid = len(refs) == 2
+    pir = pir_band is not None
+    use_rd = rd and partitions
     # ---- motion: full-pel, sub-pel, reference choice ----
     rs = []
     for k, ref in enumerate(refs):
         w, o = wp if (k == 0 and wp is not None) else (128, 0)
-        mvs, mvp_est = p_fullpel_core(y, ref["y_pad"], lam,
-                                      me_range=me_range, me_seeded=me_seeded)
+        mvs, mvp_est = p_fullpel_core(y, ref["y_pad"], lam, pir_cap,
+                                      me_range=me_range, me_seeded=me_seeded,
+                                      shapes=partitions)
         if k == 0:
             mvp_rd = mvp_est
         rs.append(p_subpel_core(y, ref["hpel"], mvs, mvp_est, lam, w, o,
-                                me_range=me_range, return_cands=True,
-                                p8x8=p8x8))
+                                me_range=me_range, return_cands=use_rd,
+                                p8x8=p8x8, partitions=partitions))
     if ref1_valid:
         (inter_cost, pred_y, mvq, part_mode, mv_parts, refidx,
          cands) = p_me_select(rs[0], rs[1], True)
@@ -1145,24 +1227,32 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
             r0["cost"], r0["pred_y"], r0["mvq"], r0["part_mode"],
             r0["mv_parts"])
         refidx = torch.zeros((n,), dtype=_i32, device=y.device)
-        cands = (r0["cand_pred"], r0["cand_mv"])
+        cands = (r0["cand_pred"], r0["cand_mv"]) if use_rd else None
     del rs
     # ---- intra candidate, then the RD tier ----
-    (i16_mode, chroma_mode, i4_modes, use_i4,
-     best_intra) = p_intra_core(y, u, v, qp_mb, i4=i4)
-    part_mode, pred_y, mv_parts, is_intra_rd = p_rd_core(
-        y, cands[0], cands[1], mvp_rd, qp_mb, ref1_valid, i16_mode,
-        mbw=mbw, mbh=mbh, two_refs=two_refs)
+    if intra_in_p:
+        (i16_mode, chroma_mode, i4_modes, use_i4,
+         best_intra) = p_intra_core(y, u, v, qp_mb, i4=i4)
+    else:
+        i16_mode = chroma_mode = i4_modes = use_i4 = None
+        best_intra = torch.zeros((mbh, mbw), dtype=_i32, device=y.device)
+    is_intra_rd = None
+    if use_rd:
+        part_mode, pred_y, mv_parts, is_intra_rd = p_rd_core(
+            y, cands[0], cands[1], mvp_rd, qp_mb, ref1_valid, i16_mode,
+            mbw=mbw, mbh=mbh, two_refs=two_refs, intra_rd=intra_in_p)
     del cands
     # ---- transform, then the mixed commit and cbp / skip ----
     xm = p_xfrm_core(
         y, u, v, refs[0]["cuv_pad"],
         refs[1]["cuv_pad"] if ref1_valid else None, inter_cost, pred_y, mvq,
         part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
-        use_i4, best_intra, qp_mb, qpc_mb, is_intra_rd, trl_tabs, mbw=mbw,
-        mbh=mbh, two_refs=two_refs, decimate=decimate, p8x8=p8x8)
+        use_i4, best_intra, qp_mb, qpc_mb, is_intra_rd, trl_tabs, pir_band,
+        nr_offset, mbw=mbw, mbh=mbh, two_refs=two_refs, decimate=decimate,
+        p8x8=p8x8, partitions=partitions, intra_in_p=intra_in_p, pir=pir,
+        nr=nr_offset is not None)
     cm = p_merge_core(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw, mbh=mbh,
-                      two_refs=two_refs, i4=i4)
+                      two_refs=two_refs, i4=i4, intra_in_p=intra_in_p)
     del xm
     # ---- entropy ----
     if entropy:
@@ -1186,10 +1276,12 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     recon = (cm["recon_y"], cm["recon_u"], cm["recon_v"])
     if deblock:
         recon = p_deblock_core(
-            *recon, cm["is_intra"], cm["nnz_l"], cm["mv4_grid"], eff_qp,
+            *recon, cm["is_intra"], cm["nnz_l"],
+            cm["mv4_grid"] if partitions else cm["mv_field"], eff_qp,
             cm["ref_grid"], mbw=mbw, mbh=mbh, two_refs=two_refs,
             a_off=a_off, b_off=b_off, cqpo=cqpo)
-    stats = {"skip": cm["skip_n"], "satd": cm["satd_cost"],
+    stats = {"nr_sums": cm["nr_sums"], "skip": cm["skip_n"],
+             "satd": cm["satd_cost"],
              "intra": cm["intra_n"], "i4": cm["i4_n"],
              "p16x8": cm["p16x8_n"], "p8x16": cm["p8x16_n"],
              "p8x8": cm["p8x8_n"],
@@ -1249,29 +1341,41 @@ def apply_ref_list_mod(enc, ref, sh):
     sh.ref_pic_list_mod_l0 = [(0, diff - 1)]
 
 
-def _unported(enc, pir):
-    """NotImplementedError naming the ROADMAP item of a P-frame branch
-    that is not ported, or None."""
-    a = enc.p.analyse
-    if pir is not None:
-        return "periodic intra refresh is not ported yet (ROADMAP item 12)"
-    if getattr(a, "noise_reduction", 0):
-        return "noise reduction is not ported yet (ROADMAP item 12)"
-    if not a.inter & ANALYSE_PSUB16x16 or a.subpel_refine < 7:
-        return ("P frames without partitions or below subme 7 are not "
-                "ported yet (ROADMAP item 6)")
-    return None
+def pir_maps(pir, mbw, mbh, device):
+    """The periodic-intra-refresh tensors of one P frame from its geometry
+    pir = (start_col, end_col, ref_end_col or None): the forced-intra
+    column band [mbh, mbw] bool, and the cap on each MB's full-pel dx
+    [mbh, mbw] int32, which keeps MBs left of the band (already refreshed)
+    from reaching the reference's columns at or past its refreshed end
+    (x264_tpu inter.dispatch_pframe)."""
+    start_col, end_col, ref_end = pir
+    cols = np.arange(mbw)
+    band = (cols >= start_col) & (cols <= end_col)
+    # stay left of the reference's refreshed boundary by the hpel taps (3
+    # px), the subpel step (1 px) and rounding; no cap elsewhere, nor after
+    # an I frame reference
+    cap = np.full((mbw,), 1 << 20, np.int32)
+    if ref_end is not None:
+        lim = ref_end * 16 - cols * 16 - 16 - 5
+        # no cap when the refresh bar is at or left of the MB itself; an
+        # MB whose every offset is capped falls back to the forced intra
+        guard = (ref_end * 16 - cols * 16 - 3) > 0
+        cap = np.where((cols < start_col) & guard, lim, cap)
+    band_t = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(band, (mbh, mbw)))).to(device)
+    cap_t = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(cap, (mbh, mbw)).astype(np.int32))).to(device)
+    return band_t, cap_t
 
 
 def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
                     pir=None):
     """Dispatch one P frame (CAVLC on the device, or CABAC through the
     host writer in finalize). planes: the encoder's padded planes
-    (`Planes`, whose `host_luma` the weightp fit reads). Returns
-    (finalize_fn, retry_fn(qp) -> (finalize, recon), recon_dev, ref_tag)."""
-    why = _unported(enc, pir)
-    if why:
-        raise NotImplementedError(why)
+    (`Planes`, whose `host_luma` the weightp fit reads); pir: the periodic
+    intra refresh geometry (start_col, end_col, ref_end_col or None) of
+    Encoder._pir_advance, or None. Returns (finalize_fn, retry_fn(qp) ->
+    (finalize, recon), recon_dev, ref_tag)."""
     if not enc._dpb:
         raise RuntimeError("P frame without reference")
     mbw, mbh = enc.mb_w, enc.mb_h
@@ -1280,10 +1384,10 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
     else:   # re-dispatch after an overflow repair: the same reference
         ref = next(r for r in enc._dpb if r["tag"] == ref_tag)
     # the second L0 reference is the next most recent DPB entry (the
-    # decoder's default list0[1]); none on the first P after an IDR or
-    # when a ref-list modification re-points list0[0]
+    # decoder's default list0[1]); none on the first P after an IDR, under
+    # PIR, or when a ref-list modification re-points list0[0]
     ref1 = None
-    two_refs = enc.n_refs >= 2
+    two_refs = enc.n_refs >= 2 and pir is None
     if two_refs:
         ri = next(i for i, r in enumerate(enc._dpb) if r is ref)
         if ri >= 1:
@@ -1317,6 +1421,7 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
     # trellis needs the slice-init CABAC flag / level costs, so it runs
     # under CABAC only
     use_trellis = bool(enc.p.analyse.trellis) and cabac
+    partitions = bool(enc.p.analyse.inter & ANALYSE_PSUB16x16)
 
     def attempt(qp_try):
         qp_mb, qpc_mb = build_qp_maps(enc, y, u, v, qp_try, tree_off)
@@ -1325,6 +1430,15 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
         cap_words = (mbw * mbh * cap_bytes_per_mb(qp_try)) // 4
         trl_tabs = (frame_ctx_costs(False, qp_try, cat=2) if use_trellis
                     else None)
+        nr = int(getattr(enc.p.analyse, "noise_reduction", 0) or 0)
+        if nr and not hasattr(enc, "_nr_state"):
+            enc._nr_state = (np.zeros((4, 4), np.int64), 0,
+                             np.zeros((4, 4), np.int32))
+        nr_offset = (torch.from_numpy(enc._nr_state[2]).to(y.device)
+                     if nr else None)
+        pir_band = pir_cap = None
+        if pir is not None:
+            pir_band, pir_cap = pir_maps(pir, mbw, mbh, y.device)
         words, total_bits, recon, stats = encode_pframe(
             y, u, v, refs, qp_mb, qpc_mb, qp_try, lam, wp, mbw=mbw, mbh=mbh,
             cap_words=cap_words, me_range=me_range,
@@ -1336,8 +1450,10 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
             i4=bool(enc.p.analyse.intra & ANALYSE_I4x4), two_refs=two_refs,
             entropy=not cabac,
             # x264_tpu's CABAC writer has no sub_mb_type: no P_8x8 there
-            p8x8=not cabac, trl_tabs=trl_tabs,
-            me_seeded=enc.p.analyse.me_method <= 2)   # dia / hex / umh
+            p8x8=partitions and not cabac, trl_tabs=trl_tabs,
+            me_seeded=enc.p.analyse.me_method <= 2,   # dia / hex / umh
+            partitions=partitions, rd=enc.p.analyse.subpel_refine >= 7,
+            pir_cap=pir_cap, pir_band=pir_band, nr_offset=nr_offset)
         enc._pending_ref_fields = {"mvf": stats["mvf"],
                                    "mvf4": stats["mvf4"],
                                    "inter_mask": stats["inter_mask"]}
@@ -1354,6 +1470,12 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
                    else list(recon))
             enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),
                        float(stats["satd"]), qp_try)
+            if nr and stats["nr_sums"] is not None:
+                # offset learning (x264_noise_reduction_update)
+                s, c, _ = enc._nr_state
+                off, s2, c2 = quant.nr_update(
+                    nr, stats["nr_sums"].cpu().numpy(), 16 * mbw * mbh, s, c)
+                enc._nr_state = (s2, c2, off)
             # MB-mode histogram (encoder_close's stats block)
             mbs = enc.stats.setdefault("mb", {}).setdefault(
                 "P", {"total": 0, "skip": 0, "intra": 0, "16x8": 0,

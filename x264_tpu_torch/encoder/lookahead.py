@@ -6,7 +6,7 @@ The lowres intake (`lowres_plane`, `intra_blocks`), the cost search
 bidirectional cost of a B candidate (`_bidir_cost`, which the adaptive
 B-run decision compares path costs with), MB-tree (`_mbtree_propagate`,
 `_mbtree_finish`, `Lookahead._mbtree_offsets`) and the `Lookahead` window
-logic, which is host code. Nothing here raises NotImplementedError.
+logic, which is host code.
 """
 
 from __future__ import annotations

@@ -84,3 +84,33 @@ def dequant2x2_dc(f, qp):
     q = _bc_qp(qp, f.shape[:-2], f.device)
     mf16 = const(tables.DEQUANT4_SCALE, f.device)[(q % 6).long(), 0] << 4
     return ((f.to(torch.int32) * mf16) << (q // 6)) >> 5
+
+
+def denoise_dct(w, offset):
+    """Noise reduction (x264_tpu ops/quant.denoise_dct): shrink each
+    |coefficient| by a learned per-position offset before quantization.
+    w [..., 4, 4] int32; offset [4, 4] int32. Returns (denoised
+    coefficients, the |w| sums per position [4, 4] int64)."""
+    aw = w.to(torch.int32).abs()
+    sums = aw.sum(dim=tuple(range(w.dim() - 2)), dtype=torch.int64)
+    lvl = (aw - offset.to(torch.int32)).clamp(min=0)
+    return torch.sign(w).to(torch.int32) * lvl, sums
+
+
+def nr_update(nr_strength: int, sums, count: int, prev_sum, prev_count):
+    """Host-side offset learning (x264_tpu ops/quant.nr_update, a copy):
+    accumulate the position sums, halving past 2^18 samples; offset =
+    nr * count / (sum * weight / 256 + 1), DC never denoised.
+    Returns (offset [4,4] int32, new_sum, new_count)."""
+    import numpy as _np
+    s = prev_sum + _np.asarray(sums, _np.int64)
+    c = prev_count + int(count)
+    if c > (1 << 18):
+        s >>= 1
+        c >>= 1
+    d = tables.DEQUANT4_MF[0].astype(_np.int64)          # {10,13,16} classes
+    weight2 = (d * d) >> 2
+    off = ((_np.int64(nr_strength) * c + s // 2)
+           // (s * weight2 // 256 + 1)).astype(_np.int32)
+    off[0, 0] = 0
+    return off, s, c
