@@ -2,8 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (x264_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --commit-ab OTHER_CHECKOUT   (see commit_ab)
 
-Phases (any failure exits non-zero and prints no result line):
+Phases, in the order 1, 8, 2, 4, 5, 7, 9, 10, 6 (the timed work, with
+nothing else running but the default path's decoder, at the lowest
+priority on one core), then 3 (it times nothing) and the report (any
+failure exits non-zero, stops every process the run started and prints
+no result line):
   1. build the hand-written CUDA kernels (csrc/commit.cu, nvcc, sm_90a)
      and print what ptxas reports; build and load the host CABAC writer
      (csrc/cabac.cpp, g++) beside it, both compilers started together;
@@ -23,8 +28,17 @@ Phases (any failure exits non-zero and prints no result line):
      old) and commit_ref; split the per-diagonal kernel's time into
      launch cost and work; time the frame kernel's MB step and row
      hand-off on one-row and one-column frames; read its per-block
-     counters (wait, luma, chroma, polling) at 1080p;
-  3. encode a 3-frame 64x48 all-intra clip and a 5-frame 64x48 IPPP clip
+     counters (wait, luma, chroma, polling) at 1080p; then the batched
+     launch (a leading item axis: B frames, or B slice bands, in one
+     launch): B = 2 and 3 at 64x48 and 48x32 in the four variants and a
+     batch whose B * mbh exceeds the co-resident grid, against commit_ref
+     item by item; B = 2 real 1080p frames in the four variants against
+     single launches; a 1080p frame as 4 bands of 17 MB rows (the mesh's
+     I step) against commit_ref, timed; S = 1, 2, 4 1080p frames in one
+     launch against S single launches, timed in turns;
+  3. in a pool of worker processes (each with its own CUDA context),
+     beside the decoders that the cases ask for: encode a 3-frame 64x48
+     all-intra clip and a 5-frame 64x48 IPPP clip
      (preset medium, CAVLC) on CUDA and on the CPU: the streams must be
      byte-identical, and tools/refdec.py must decode each CUDA stream to
      its reconstruction; then the same CUDA == CPU check on 4 IPPP frames
@@ -34,12 +48,23 @@ Phases (any failure exits non-zero and prints no result line):
      the defaults; then veryfast, fast, noise reduction, periodic intra
      refresh (keyint 8, Encoder.intra_refresh() ahead of frame 1), I_PCM
      and SSIM at 64x48 x5 and 640x360 x3, refdec decoding the 640x360
-     streams, the SSIM of each frame equal on both devices;
+     streams, the SSIM of each frame equal on both devices; then the
+     modules ported last, CUDA == CPU byte for byte: the CLI
+     (x264_tpu_torch.cli.main, --device cuda / cpu) at 64x48 to .264,
+     .mkv and .mp4 at its defaults, with ABR + VBV + nal-hrd cbr + filler,
+     with --aud, and two passes (stats files equal too); the farm (S = 2,
+     one commit launch per frame position) at 64x48 and 640x360, refdec
+     decoding the 640x360 streams to the farm's reconstructions; the mesh
+     (2 streams x 4 bands, I then P) at 64x128, one launch for the I
+     step and none for the P step, refdec decoding each intra band coded
+     as a frame of its own (refdec decodes no multi-slice stream); and the
+     CPU encodes of the timed paths' first frames (phases 4, 7, 8, 9, 10);
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernel's launch count reset
      just before and read just after (one launch per encoded frame);
-     frame 0 must match a CPU encode of the same frame byte for byte;
+     frame 0 must match a CPU encode of the same frame byte for byte
+     (phase 3);
   5. the P main path (what bench.py times): 4 frames of the same clip,
      IPPP at preset medium (2 references, weightp, partitions, subme 7,
      I_4x4 and intra in P), CQP 26, CAVLC, through Encoder.encode on
@@ -50,8 +75,8 @@ Phases (any failure exits non-zero and prints no result line):
      CUDA: the host C++ writer, trellis, no P_8x8; the launch count reset
      just before and read just after (one launch per frame); bytes beside
      phase 5's CAVLC bytes for the same frames; frame 0 must match a CPU
-     encode of the same frame byte for byte;
-  8. the default path: 8 frames of the same clip at
+     encode of the same frame byte for byte (phase 3);
+  8. the default path: 5 frames of the same clip at
      param_default_preset("medium") with only the size set (CRF 23, CABAC,
      bframe 3, MB-tree, AQ, trellis, 2 references, weightp), all decided
      at the flush (the MB-tree window is 24 frames deep), through
@@ -61,12 +86,11 @@ Phases (any failure exits non-zero and prints no result line):
      reset just before and read just after: one commit launch per I or P
      frame, none for a B frame (it has no intra MB). At least one frame
      must be B. Frame 0 must match a CPU encode of frame 0 (the CPU
-     encoder's lookahead sees all 8 frames) byte for byte; tools/refdec.py
-     decodes the whole stream to the reconstructions, which takes
-     minutes: the phase runs before phase 3, the decoder in a process of
-     its own beside phase 3's checks (they time nothing), and phase 4
-     waits for it, so every fps and stage time is taken with nothing
-     else running;
+     encoder's lookahead sees all 5 frames) byte for byte (phase 3);
+     tools/refdec.py decodes the whole stream to the reconstructions,
+     which takes minutes: the phase runs first, and the decoder, in a
+     process of its own at the lowest priority on one core, runs beside
+     every phase after it and is waited for after phase 3;
   9. the two ultrafast paths: 6 frames of the same clip at
      param_default_preset("ultrafast") with the size and CQP 26 (no
      deblock, no I_4x4, no partitions, subme 0: the I16 and the mixed
@@ -75,8 +99,18 @@ Phases (any failure exits non-zero and prints no result line):
      frame 15: the mixed variant with a forced-intra column band), each
      through Encoder.encode with the launch count reset just before and
      read just after (one per frame), frames 0-1 against a CPU encode of
-     the same frames, the band columns per frame, and a P-frame stage
-     breakdown while the clip is encoded again;
+     the same frames (phase 3), the band columns per frame, and a P-frame
+     stage breakdown while the clip is encoded again;
+ 10. the farm, the mesh and the CLI at 1080p: the farm (S = 2: the
+     bench's clip and the same clip mirrored, I P P at the farm's scope:
+     preset medium IPPP, CQP 26, CAVLC, weighted_pred 0) with its stages
+     timed, the launch count reset just before and read just after (one
+     per frame position); the mesh (1 stream x 4 bands of 17 MB rows, I
+     then P; one launch, then none); the CLI on a 6-frame y4m written by
+     the port's Y4MWriter (preset ultrafast, ABR with VBV and nal-hrd cbr,
+     .mp4; one launch per frame), run again with its P stages timed, and
+     its first two frames against a CPU run (phase 3); fps, launches,
+     stage times, bytes and PSNR of each;
   6. print fps, the kernels' and the plain version's time per frame,
      per-stage breakdowns of a 1080p I frame and of a 1080p P frame with
      two references (the P path's own stage functions timed while
@@ -106,7 +140,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 2          # all-intra path
 N_P_FRAMES = 4        # IPPP main path: IDR + 3 P (frames 2-3: two refs)
 N_CABAC_FRAMES = 4    # CABAC main path: IDR + 3 P (frames 2-3: two refs)
-N_DEFAULT_FRAMES = 8  # default path: fewer than the MB-tree window's 24
+N_DEFAULT_FRAMES = 5  # default path (I P B B B): fewer than the MB-tree
+                      # window's 24
 QP = 26
 N_FAST_FRAMES = 6     # the 1080p ultrafast path: IPPPPP
 N_PIR_FRAMES = 16     # ultrafast + intra refresh at keyint 8: a sweep in
@@ -116,8 +151,23 @@ VARIANTS = (("i16", False, False), ("i16+i4", False, True),
             ("mixed+i4", True, True), ("mixed", True, False))
 
 
+CHILDREN = []         # decoder processes and the worker pool, stopped by fail
+
+
+def stop_children():
+    for child in CHILDREN:
+        if hasattr(child, "shutdown"):            # the phase 3 pool
+            for proc in list((child._processes or {}).values()):
+                proc.kill()
+            child.shutdown(wait=False, cancel_futures=True)
+        elif child.poll() is None:
+            child.kill()
+            child.wait()
+
+
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -400,7 +450,9 @@ def launch_split(torch, C, args, kw):
     keep = []
     for label, all_i4 in (("diag_i16", False), ("diag_i4", True)):
         mask = torch.full_like(kw["i4_mask"], all_i4)
-        struct, *tensors = C._kernel_args(*args, **dict(kw, i4_mask=mask))
+        bargs, bkw = C._as_batch(*args[:7], None, None, mask,
+                                 kw["i4_modes"])
+        struct, *tensors = C._kernel_args(*bargs, args[7], args[8], **bkw)
         keep.append((struct, tensors, mask))
         runs.append((label, lambda s=struct: check(
             lib.x264t_commit_diag(ctypes.byref(s), d, stream))))
@@ -490,10 +542,18 @@ def real_p_commit(torch, C, variant, args, kw):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def refdec_start(stream, tag="s"):
+def background_core():
+    """In a child before it runs: the lowest priority, on the last core."""
+    os.nice(19)
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+
+
+def refdec_start(stream, tag="s", background=False):
     """Start tools/refdec.py on an Annex-B stream in a process of its own
     (the decoder reads x264_tpu's spec tables, and this process imports
-    nothing of x264_tpu). Returns what refdec_finish takes."""
+    nothing of x264_tpu); with `background`, at the lowest priority on one
+    core, so that it can run beside timed phases. Returns what
+    refdec_finish takes."""
     work = os.path.join(ROOT, "x264_tpu_torch", "_build", "smoke")
     os.makedirs(work, exist_ok=True)
     src = os.path.join(work, tag + ".264")
@@ -503,7 +563,9 @@ def refdec_start(stream, tag="s"):
     proc = subprocess.Popen(
         [sys.executable, os.path.join(ROOT, "tools", "refdec.py"), src, raw],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=ROOT))
+        env=dict(os.environ, PYTHONPATH=ROOT),
+        preexec_fn=background_core if background else None)
+    CHILDREN.append(proc)
     return proc, raw, time.time()
 
 
@@ -531,17 +593,13 @@ def refdec_finish(job, w, h, timeout=600):
     return frames, time.time() - t0
 
 
-def refdec_decode(stream, w, h):
-    """Decode an Annex-B stream with tools/refdec.py -> [(y, u, v)]."""
-    return refdec_finish(refdec_start(stream), w, h)[0]
-
-
-def decodes_to(decoded, outs):
-    """refdec's frames (coding order) equal the encoder's reconstructions."""
+def same_frames(decoded, frames):
+    """refdec's frames (coding order) equal `frames` ([y, u, v] each)."""
     import numpy as np
-    return len(decoded) == len(outs) and all(
-        np.array_equal(d[c], o.recon[c])
-        for d, o in zip(decoded, outs) for c in range(3))
+    return len(decoded) == len(frames) and all(
+        np.array_equal(d[c], f[c])
+        for d, f in zip(decoded, frames) for c in range(3))
+
 
 
 def check_clean_imports():
@@ -629,6 +687,765 @@ def latency_model(torch, C, dev, rng):
     return out
 
 
+# ------------------------------------------ the batched launch (phase 2)
+def rand_frame(rng, w, h):
+    """Random uint8 planes [y, u, v] of a w x h frame."""
+    import numpy as np
+    return [rng.integers(0, 256, s).astype(np.uint8)
+            for s in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+
+
+def check_batch(torch, C, calls, label, against, refs=None):
+    """One batched launch of the per-item `calls` (C.commit_batch) held
+    item by item against `against`: "commit_ref" (or its outputs `refs`,
+    computed already), or "single launches" of the frame kernel (verified
+    against commit_ref above). Fails unless the batch was one launch and
+    every item agrees. Returns the worst max_abs_err and the batch's
+    outputs."""
+    n0 = C.commit.launches
+    got = C.commit_batch(calls)
+    torch.cuda.synchronize()
+    if C.commit.launches != n0 + 1:
+        fail(f"the batch of {len(calls)} ({label}) made "
+             f"{C.commit.launches - n0} launches, expected 1")
+    fn = C.commit_ref if against == "commit_ref" else C.commit_cuda
+    if refs is None:
+        refs = [fn(*a, **k) for a, k in calls]
+    errs = [max_abs_err(r, g) for r, g in zip(refs, got)]
+    log(f"phase 2 batched frame kernel, B={len(calls)} {label}, vs "
+        f"{against} item by item: max_abs_err {max(errs)} (tolerance 0), "
+        f"global MB rows {len(calls) * calls[0][0][8]}")
+    if max(errs) != 0:
+        fail(f"the batched frame kernel disagrees with {against} ({label}, "
+             f"B={len(calls)}, per item {errs})")
+    return max(errs), got
+
+
+def batch_bound(calls, outs):
+    """commit_bound of a batch: the bytes and operations of its items
+    summed. Returns (bound_ms, bound_by, bytes, ops)."""
+    nbytes = ops = 0
+    for (a, k), got in zip(calls, outs):
+        _, _, b, o = commit_bound(a, k, got)
+        nbytes, ops = nbytes + b, ops + o
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def batched_phase(torch, C, dev, rng, clip, enc_big, qp_i, cap):
+    """Phase 2, the batched launch (a leading item axis: the frames of
+    several streams, or the slice bands of a frame): B = 2 and 3 at 64x48
+    and 48x32 in the four variants and a batch whose B * mbh exceeds the
+    co-resident grid, against commit_ref item by item; B = 2 real 1080p
+    frames in the four variants against single launches; the 1080p frame
+    as 4 bands of 17 MB rows (the mesh's I step) against commit_ref, timed
+    with its plain version and bound; S = 1, 2, 4 1080p frames in one
+    launch against S single launches, timed in turns."""
+    from x264_tpu_torch.encoder.encoder import Encoder
+    worst = 0
+    tall = cap // 2 + 3          # 2 items: 2 * tall > cap global rows
+    for label, w, h, bs in (("64x48", 64, 48, (2, 3)),
+                            ("48x32", 48, 32, (2, 3)),
+                            (f"256x{16 * tall}", 256, 16 * tall, (2,))):
+        enc = Encoder(intra_params(w, h), device=dev)
+        for B in bs:
+            for variant, mixed, with_i4 in VARIANTS:
+                if w == 256 and variant in ("i16", "mixed"):
+                    continue
+                calls = [commit_inputs(torch, enc, enc._pad_to_mb(
+                    rand_frame(rng, w, h)), qp_i, seed=20 + b, mixed=mixed,
+                    with_i4=with_i4) for b in range(B)]
+                worst = max(worst, check_batch(torch, C, calls,
+                                               f"{label} {variant}",
+                                               "commit_ref")[0])
+    frames = [enc_big._pad_to_mb(f) for f in clip[:4]]
+    for variant, mixed, with_i4 in VARIANTS:
+        calls = [commit_inputs(torch, enc_big, f, qp_i, seed=30 + b,
+                               mixed=mixed, with_i4=with_i4)
+                 for b, f in enumerate(frames[:2])]
+        worst = max(worst, check_batch(torch, C, calls,
+                                       f"1920x1088 {variant}",
+                                       "single launches")[0])
+    # the mesh's I step on one 1080p frame: 4 bands of 17 MB rows, I16
+    enc_band = Encoder(intra_params(1920, 272), device=dev)
+    y, u, v = frames[0]
+    band_calls = [commit_inputs(
+        torch, enc_band, [y[272 * b:272 * (b + 1)], u[136 * b:136 * (b + 1)],
+                          v[136 * b:136 * (b + 1)]], qp_i, seed=0,
+        mixed=False, with_i4=False) for b in range(4)]
+    refs = [timed_ref(torch, C, a, k) for a, k in band_calls]
+    plain_ms = sum(ms for _, ms in refs)
+    err, got = check_batch(torch, C, band_calls, "4 bands of 1920x272 i16",
+                           "commit_ref", refs=[r for r, _ in refs])
+    worst = max(worst, err)
+    bargs, bkw = C.stack_calls(band_calls)
+    progs = []
+
+    def run_bands():
+        progs.append(C.commit_launch(*bargs, **bkw)[2])
+
+    cuda_ms(torch, run_bands, 3)                  # warm-up
+    band_ms = [cuda_ms(torch, run_bands, 20) for _ in range(2)]
+    bound_ms, bound_by, nbytes, ops = batch_bound(band_calls, got)
+    log(f"phase 2 batched launch, 4 bands of 17 MB rows (1920x1088 in one "
+        f"launch; CUDA events, 20 runs each): {band_ms[0]:.4f} / "
+        f"{band_ms[1]:.4f} ms; commit_ref over the 4 bands {plain_ms:.1f} "
+        f"ms; bound {bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} bytes, "
+        f"{ops} integer ops)")
+    # S frames in one launch against S single launches, I16+I4
+    calls = [commit_inputs(torch, enc_big, f, qp_i, seed=0, mixed=False,
+                           with_i4=True) for f in frames]
+    timing = {}
+    for S in (1, 2, 4):
+        items = calls[:S]
+        bargs, bkw = C.stack_calls(items)
+
+        def batch():
+            progs.append(C.commit_launch(*bargs, **bkw)[2])
+
+        def singles():
+            for a, k in items:
+                progs.append(C.commit_launch(*a, **k)[2])
+
+        for fn in (singles, batch):
+            cuda_ms(torch, fn, 3)                 # warm-up
+        s_ms = [cuda_ms(torch, singles, 20)]
+        b_ms = [cuda_ms(torch, batch, 20), cuda_ms(torch, batch, 20)]
+        s_ms.append(cuda_ms(torch, singles, 20))
+        out, recon, prog = C.commit_launch(*bargs, **bkw)
+        progs.append(prog)
+        b_bound = batch_bound(items, [
+            ({k: t[b] for k, t in out.items()}, [r[b] for r in recon])
+            for b in range(S)])
+        timing[S] = {"batched_ms": b_ms, "singles_ms": s_ms,
+                     "bound_ms": b_bound[0], "bound_by": b_bound[1],
+                     "bytes": b_bound[2]}
+        log(f"phase 2 S={S} 1080p I16+I4 frames (CUDA events, 20 runs each; "
+            f"singles, batch, batch, singles): one batched launch "
+            f"{b_ms[0]:.4f} / {b_ms[1]:.4f} ms, {S} single launches "
+            f"{s_ms[0]:.4f} / {s_ms[1]:.4f} ms; bound "
+            f"{b_bound[0] * 1e3:.3f} us by {b_bound[1]} ({b_bound[2]} bytes)")
+    for prog in progs:
+        C.check_progress(prog, 120)
+    return {"worst": worst, "band_ms": sum(band_ms) / 2,
+            "band_plain_ms": plain_ms, "band_bound_ms": bound_ms,
+            "band_bound_by": bound_by, "timing": timing}
+
+
+# --------------------------------- CLI, farm and mesh, CUDA == CPU (phase 3)
+def cli_run(dev_name, work, name, src, extra):
+    """The port's CLI on `src` with --device dev_name -> (output bytes,
+    stats file text or None, host seconds)."""
+    from x264_tpu_torch import cli
+    out = os.path.join(work, f"{name}_{dev_name}.{extra[-1]}")
+    opts = list(extra[:-1])
+    stats = None
+    if "--stats" in opts:
+        k = opts.index("--stats") + 1
+        stats = opts[k] = os.path.join(work, f"{opts[k]}_{dev_name}.log")
+    t0 = time.time()
+    rc = cli.main(["--device", dev_name, "--quiet"] + opts + ["-o", out, src])
+    if rc != 0:
+        fail(f"CLI {name} on {dev_name} exited {rc}")
+    with open(out, "rb") as f:
+        data = f.read()
+    text = None
+    if stats is not None:
+        with open(stats) as f:
+            text = f.read()
+    return data, text, time.time() - t0
+
+
+def y4m_clip(work, name, frames, w, h):
+    """Write frames as a y4m (the port's Y4MWriter) -> its path."""
+    from x264_tpu_torch.io.y4m import VideoInfo, Y4MWriter
+    path = os.path.join(work, name + ".y4m")
+    wr = Y4MWriter(path, VideoInfo(w, h, 25, 1))
+    for f in frames:
+        wr.write_frame(f)
+    wr.close()
+    return path
+
+
+VBV_CLI = ["--bitrate", "1000", "--vbv-maxrate", "1000", "--vbv-bufsize",
+           "200", "--nal-hrd", "cbr", "--filler"]
+
+
+def farm_params(w, h):
+    """The farm's scope: ippp_params (preset medium, IPPP, CQP 26, CAVLC)
+    with weighted_pred 0."""
+    p = ippp_params(w, h)
+    p.analyse.weighted_pred = 0
+    return p
+
+
+def farm_run(torch, C, params, clips, dev, timer=None):
+    """FarmEncoder over S clips (one per stream) on `dev` -> (streams,
+    per-stream reconstructions (numpy) per frame position, launches per
+    frame position, host seconds). With `timer` (a StageTimer's hooks),
+    the farm's stage functions are timed while it runs."""
+    import contextlib
+    from x264_tpu_torch.encoder.encoder import annexb_bytes
+    from x264_tpu_torch.encoder.farm import FarmEncoder
+    farm = FarmEncoder(params, len(clips), device=dev)
+    streams = [annexb_bytes(farm.headers()) for _ in clips]
+    recons, launches = [[] for _ in clips], []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    ctx = (contextlib.nullcontext() if timer is None else StageTimer(
+        torch, None, hooks=timer, dpb_push=False,
+        extra=[(farm, "_dpb_entry", "dpb_push")]))
+    t0 = time.time()
+    with ctx as stages:
+        for i in range(len(clips[0])):
+            n0 = C.commit.launches
+            outs = farm.encode_batch([c[i] for c in clips], idr=(i == 0))
+            launches.append(C.commit.launches - n0)
+            for s, nals in enumerate(outs):
+                streams[s] += annexb_bytes(nals)
+                recons[s].append([r.cpu().numpy() for r in farm.recon[s]])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.time() - t0
+    if timer is not None:
+        n = len(clips[0])
+        return streams, recons, launches, secs, {
+            k: v / n for k, v in stages.ms.items()}
+    return streams, recons, launches, secs
+
+
+def mb_pad(frame, w, h):
+    """Edge-pad planes to whole MBs, as the Encoder pads its input."""
+    import numpy as np
+    H, W = -(-h // 16) * 16, -(-w // 16) * 16
+    return [np.pad(p, ((0, (H - h) // d), (0, (W - w) // d)), mode="edge")
+            for p, d in zip(frame, (1, 2, 2))]
+
+
+def mesh_run(torch, C, dev, i_frames, p_frames, band_mb_rows, qp=QP):
+    """The mesh's I step, then its P step against the I step's
+    reconstructions, on `dev` -> ([intra outputs, P outputs], commit
+    launches of each step, host seconds of each step, the layout)."""
+    import numpy as np
+    from x264_tpu_torch.parallel import mesh
+    m = mesh.make_mesh(8 if len(i_frames) > 1 else 4, devices=dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out, launches, secs = [], [], []
+    for step in ("intra", "pframe"):
+        n0 = C.commit.launches
+        sync()
+        t0 = time.time()
+        if step == "intra":
+            r = mesh.sharded_intra_encode(m, i_frames, qp=qp,
+                                          band_mb_rows=band_mb_rows)
+            refs = [[np.concatenate(r[2][c][s].cpu().numpy(), axis=0)
+                     for c in range(3)] for s in range(len(i_frames))]
+        else:
+            r = mesh.sharded_pframe_encode(m, p_frames, refs, qp=qp,
+                                           band_mb_rows=band_mb_rows)
+        sync()
+        secs.append(time.time() - t0)
+        launches.append(C.commit.launches - n0)
+        out.append(r)
+    return out, launches, secs, m
+
+
+def mesh_bytes(params, intra, pfr, s, band_mb_rows, qp=QP):
+    """Headers, the banded IDR (no deblock) and the banded P frame
+    (deblock inside each slice) of stream s."""
+    from x264_tpu_torch.encoder.encoder import annexb_bytes
+    from x264_tpu_torch.parallel.mesh import assemble_band_nals
+    nals = headers_for(params)
+    nals += assemble_band_nals(params, intra[0][s], intra[1][s],
+                               band_mb_rows=band_mb_rows, slice_qp=qp,
+                               deblock_idc=1)
+    nals += assemble_band_nals(params, pfr[0][s], pfr[1][s],
+                               band_mb_rows=band_mb_rows, slice_qp=qp,
+                               frame_num=1, poc=2, idr=False, ptype=True,
+                               deblock_idc=2)
+    return annexb_bytes(nals)
+
+
+def mesh_params(w, h):
+    from x264_tpu_torch.encoder.encoder import validate_parameters
+    return validate_parameters(ippp_params(w, h))
+
+
+def headers_for(params):
+    """SPS and PPS NALs of `params`."""
+    from x264_tpu_torch.entropy import nal as nal_mod
+    from x264_tpu_torch.entropy import sets
+    sps = sets.sps_init(params, params.sps_id)
+    pps = sets.pps_init(params, sps, params.sps_id)
+    return [nal_mod.nal_encode(nal_mod.NAL_SPS, nal_mod.NAL_PRIORITY_HIGHEST,
+                               sets.sps_write(sps)),
+            nal_mod.nal_encode(nal_mod.NAL_PPS, nal_mod.NAL_PRIORITY_HIGHEST,
+                               sets.pps_write(pps))]
+
+
+def band_stream(intra, s, b, w, band_mb_rows, qp=QP):
+    """Band b of stream s of the mesh's I step as the one slice of a
+    w x band-height picture: a stream refdec can decode."""
+    from x264_tpu_torch.encoder.encoder import annexb_bytes
+    from x264_tpu_torch.parallel.mesh import assemble_band_nals
+    p = mesh_params(w, 16 * band_mb_rows)
+    return annexb_bytes(headers_for(p) + assemble_band_nals(
+        p, intra[0][s, b:b + 1], intra[1][s, b:b + 1],
+        band_mb_rows=band_mb_rows, slice_qp=qp, deblock_idc=1))
+
+
+# ------------------------------------------ phase 3: CUDA == CPU, in a pool
+# Phase 3 holds the card's bytes against the CPU's and times nothing. Its
+# configurations are independent, so each runs as a case in a pool of
+# worker processes, each with a CUDA context of its own (without MPS the
+# contexts take the card in time slices, so a frame kernel's blocks are
+# all resident whenever it runs). A case returns its log lines and the
+# streams refdec is to decode; the main process starts those decoders as
+# the cases end. The CPU encodes of the timed paths' first frames run in
+# the same pool, after the timed paths.
+def refresh_at_1(enc, i):
+    """Under PIR, Encoder.intra_refresh() ahead of frame 1 starts the
+    column sweep there (left alone it starts at frame keyint)."""
+    if i == 1 and enc.p.intra_refresh:
+        enc.intra_refresh()
+
+
+def recon_frames(outs):
+    import numpy as np
+    return [[np.asarray(r) for r in o.recon] for o in outs]
+
+
+def stream_case(label, p_dev, p_cpu, frames, dev_name, opts):
+    """One configuration: `frames` through Encoder.encode on `dev_name`
+    (params p_dev) and on the CPU (p_cpu); the streams must be equal.
+    opts: want (the frame types), need_b (a B frame among them), no_8x8
+    (no P_8x8 MB), refresh (refresh_at_1), ssim (each frame's SSIM equal
+    within 1e-6), pir (frame 1 a keyframe), decode (refdec is to decode
+    the stream to the reconstructions)."""
+    from x264_tpu_torch.encoder.encoder import TYPE_B, Encoder, Picture
+    before = refresh_at_1 if opts.get("refresh") else None
+    enc_g = Encoder(p_dev, device=dev_name)
+    t0 = time.time()
+    s_gpu, o_gpu = encode_stream(enc_g, frames, Picture, before)
+    t_gpu = time.time() - t0
+    t0 = time.time()
+    s_cpu, o_cpu = encode_stream(Encoder(p_cpu, device="cpu"), frames,
+                                 Picture, before)
+    t_cpu = time.time() - t0
+    types = [o.i_type for o in o_gpu]
+    if len(o_gpu) != len(frames) or types != opts.get("want", types) \
+            or (opts.get("need_b") and TYPE_B not in types):
+        fail(f"phase 3 {label}: {len(o_gpu)} frames, types {types}")
+    if s_gpu != s_cpu:
+        fail(f"phase 3 {label}: CUDA and CPU streams differ")
+    mb = enc_g.stats.get("mb", {})
+    if opts.get("no_8x8") and mb["P"]["8x8"] != 0:
+        fail(f"phase 3 {label}: a CABAC frame coded P_8x8 MBs")
+    extra = "" if "B" not in mb else f", B MBs {mb['B']}"
+    if enc_g.stats.get("weightp_frames"):
+        extra += f", weightp frames {enc_g.stats['weightp_frames']}"
+    if opts.get("ssim"):
+        d = max(abs(a.ssim - b.ssim) for a, b in zip(o_gpu, o_cpu))
+        if d > 1e-6:
+            fail(f"phase 3 {label}: SSIM CUDA vs CPU differs by {d}")
+        extra += (f", SSIM {[round(o.ssim, 6) for o in o_gpu]} (CUDA vs "
+                  f"CPU within {d:.2e})")
+    if opts.get("pir"):
+        extra += f", keyframes {[o.b_keyframe for o in o_gpu]}"
+        if not o_gpu[1].b_keyframe:
+            fail(f"phase 3 {label}: the queued refresh did not start a "
+                 f"sweep at frame 1")
+    line = (f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
+            f"bytes, types {types}, QPs {[o.qp for o in o_gpu]}, P MBs "
+            f"{mb.get('P')}{extra}; CUDA {t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
+    decode = [(label, s_gpu, recon_frames(o_gpu), p_dev.width,
+               p_dev.height)] if opts.get("decode") else []
+    return {"log": [line], "decode": decode}
+
+
+def cli_case(tag, work, src, configs, dev_name):
+    """The port's CLI on `src` with --device dev_name and --device cpu,
+    for each (name, options + [extension]) of `configs` in turn (a second
+    pass reads the stats of the first): outputs and stats files equal."""
+    lines = []
+    for name, extra in configs:
+        g, g_st, g_s = cli_run(dev_name, work, name, src, extra)
+        c, c_st, c_s = cli_run("cpu", work, name, src, extra)
+        if g != c or g_st != c_st:
+            fail(f"{tag} {name} .{extra[-1]}: CUDA and CPU differ")
+        lines.append(
+            f"{tag} {name} .{extra[-1]}: CUDA output == CPU output "
+            f"({len(g)} bytes" + ("" if g_st is None else ", stats files "
+                                  "equal") +
+            f"; CUDA {g_s:.1f} s, CPU {c_s:.1f} s)")
+    return {"log": lines}
+
+
+def farm_case(w, h, n, dev_name):
+    """The farm (S = 2, n frames) on `dev_name` and on the CPU: streams
+    equal, one commit launch per frame position on the card; at 640 wide
+    refdec is to decode each stream to the farm's reconstructions."""
+    import torch
+    from x264_tpu_torch.ops import commit as C
+    dev = torch.device(dev_name)
+    clips = [[mb_pad(f, w, h) for f in moving_frames(n, w, h, seed=s)]
+             for s in (0, 1)]
+    g_streams, g_rec, g_l, g_s = farm_run(torch, C, farm_params(w, h), clips,
+                                          dev)
+    c_streams, _, _, c_s = farm_run(torch, C, farm_params(w, h), clips,
+                                    torch.device("cpu"))
+    if g_streams != c_streams:
+        fail(f"phase 3 farm {w}x{h}: CUDA and CPU streams differ")
+    if dev.type == "cuda" and g_l != [1] * n:
+        fail(f"phase 3 farm {w}x{h}: commit launches per frame position "
+             f"{g_l}, expected 1 each")
+    decode = []
+    if w == 640:
+        decode = [(f"farm {w}x{h} stream {s}", st,
+                   [[r[c][:h if c == 0 else h // 2, :w if c == 0 else w // 2]
+                     for c in range(3)] for r in g_rec[s]], w, h)
+                  for s, st in enumerate(g_streams)]
+    return {"log": [
+        f"phase 3 farm S=2 {w}x{h} x{n}: CUDA streams == CPU streams "
+        f"({[len(st) for st in g_streams]} bytes); commit launches per "
+        f"frame position {g_l}; CUDA {g_s:.1f} s, CPU {c_s:.1f} s"],
+        "decode": decode}
+
+
+def mesh_case(dev_name):
+    """The mesh (2 streams x 4 bands of 2 MB rows, I then P) at 64x128 on
+    `dev_name` and on the CPU: bytes and reconstructions equal, one commit
+    launch for the I step and none for the P step on the card; refdec is
+    to decode each intra band, coded as a frame of its own (refdec decodes
+    no multi-slice stream), to its reconstruction."""
+    import torch
+    from x264_tpu_torch.ops import commit as C
+    dev = torch.device(dev_name)
+    frames = moving_frames(4, 64, 128, seed=9)
+    g_out, g_l, g_s, _ = mesh_run(torch, C, dev, frames[:2], frames[2:], 2)
+    c_out, _, c_s, _ = mesh_run(torch, C, torch.device("cpu"), frames[:2],
+                                frames[2:], 2)
+    p = mesh_params(64, 128)
+    sizes = []
+    for s in range(2):
+        g_b = mesh_bytes(p, *g_out, s, 2)
+        if g_b != mesh_bytes(p, *c_out, s, 2):
+            fail(f"phase 3 mesh stream {s}: CUDA and CPU bytes differ")
+        sizes.append(len(g_b))
+    for step, a, b in zip(("intra", "P"), g_out, c_out):
+        if not all(torch.equal(a[2][c].cpu(), b[2][c]) for c in range(3)):
+            fail(f"phase 3 mesh {step}: CUDA and CPU reconstructions "
+                 f"differ")
+    if dev.type == "cuda" and g_l != [1, 0]:
+        fail(f"phase 3 mesh: commit launches {g_l}, expected 1 (I step) "
+             f"and 0 (P step)")
+    decode = [(f"mesh stream {s} intra band {b}",
+               band_stream(g_out[0], s, b, 64, 2),
+               [[g_out[0][2][c][s, b].cpu().numpy() for c in range(3)]],
+               64, 32) for s in range(2) for b in range(4)]
+    return {"log": [
+        f"phase 3 mesh 2 streams x 4 bands 64x128, I then P: CUDA bytes == "
+        f"CPU bytes ({sizes}), reconstructions equal; commit launches I "
+        f"step {g_l[0]}, P step {g_l[1]}; CUDA {sum(g_s):.1f} s, CPU "
+        f"{sum(c_s):.1f} s"], "decode": decode}
+
+
+def cpu_prefix(key, params, frames):
+    """The CPU port's stream of `frames` (the first frames of a timed
+    path's clip) -> {"prefix": (key, stream, host seconds)}."""
+    from x264_tpu_torch.encoder.encoder import Encoder, Picture
+    t0 = time.time()
+    stream, _ = encode_stream(Encoder(params, device="cpu"), frames, Picture)
+    return {"prefix": (key, stream, time.time() - t0)}
+
+
+def cpu_default_frame0(key, params, frames):
+    """The CPU port's headers and first picture of the default path: its
+    lookahead takes all of `frames` (MB-tree reaches frame 0 from them),
+    then only the IDR is dispatched."""
+    from x264_tpu_torch.encoder.encoder import (TYPE_IDR, Encoder, Picture,
+                                                annexb_bytes)
+    enc = Encoder(params, device="cpu")
+    t0 = time.time()
+    stream = annexb_bytes(enc.headers())
+    for i, f in enumerate(frames):
+        enc.encode(Picture(f, pts=i))
+    enc._pipe_depth = 0               # the flush call dispatches one frame
+    nals, out = enc.encode(None)
+    stream += annexb_bytes(nals)
+    if out is None or out.i_type != TYPE_IDR:
+        fail("the CPU port's first default-path picture is no IDR")
+    return {"prefix": (key, stream, time.time() - t0), "qp": out.qp}
+
+
+def phase3_cases(dev_name, mid):
+    """Phase 3's cases, (key, function, arguments), the longest first:
+    the 640x360 option configurations (their refdec takes longest), the
+    defaults over 28 frames, the 640x360 farm and paths, the CLI and the
+    mesh, then the 64x48 configurations."""
+    import numpy as np
+    from x264_tpu_torch.encoder.encoder import TYPE_B, TYPE_IDR, TYPE_P
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:48, 0:64]
+    frames3 = []
+    for i in range(3):
+        y = np.clip(128 + 60 * np.sin(xx / 23 + i) * np.cos(yy / 17)
+                    + rng.integers(-8, 8, (48, 64)), 0, 255).astype(np.uint8)
+        u = np.clip(128 + 40 * np.sin(xx[::2, ::2] / 31 + i), 0,
+                    255).astype(np.uint8)
+        v = np.clip(128 + 40 * np.cos(yy[::2, ::2] / 29 - i), 0,
+                    255).astype(np.uint8)
+        frames3.append([y, u, v])
+    mov = moving_frames(5, 64, 48)
+    mov7 = moving_frames(7, 64, 48)
+    mov28 = moving_frames(28, 64, 48, seed=3)
+    ippp = [TYPE_IDR] + [TYPE_P] * 4
+    ibbp = [TYPE_IDR, TYPE_P, TYPE_B, TYPE_B, TYPE_P, TYPE_B, TYPE_B]
+    options = (
+        ("veryfast", preset_params("veryfast"), {}),
+        ("fast", preset_params("fast"), {}),
+        ("NR 200", option_params(analyse__noise_reduction=200), {}),
+        ("PIR keyint 8", option_params(intra_refresh=True, keyint_max=8),
+         {"pir": True}),
+        # tests/test_pcm_e2e.py's preset: refdec filters I_PCM MBs when the
+        # deblock is on (libavcodec does not), so it stays off
+        ("PCM", pcm_params, {}),
+        ("SSIM", option_params(analyse__ssim=True), {"ssim": True}))
+    big, small = [], []
+
+    def add(to, label, make, frames, **opts):
+        h, w = frames[0][0].shape
+        p_dev = make(w, h)
+        p_dev.full_recon = True
+        to.append((label, stream_case, (label, p_dev, make(w, h), frames,
+                                        dev_name, opts)))
+
+    for label, make, opts in options:
+        add(big, f"{label} 640x360 x3", make, mid[:3], refresh=True,
+            decode=True, **opts)
+        add(small, f"{label} 64x48 x5", make, mov, refresh=True, **opts)
+    add(big, "64x48 defaults (CRF, MB-tree, AQ, adaptive B) x28",
+        default_params, mov28, need_b=True, decode=True)
+    big.append(("farm 640x360", farm_case, (640, 360, 3, dev_name)))
+    add(big, "640x360 IPPP x4", ippp_params, mid, want=ippp[:4])
+    add(big, "640x360 IPPP CABAC x4", cabac_params, mid, want=ippp[:4],
+        no_8x8=True)
+    add(big, "640x360 IBBP CAVLC x4", lambda w, h: ibbp_params(w, h, False),
+        mid, want=ibbp[:4])
+    add(big, "640x360 IBBP CABAC x4", lambda w, h: ibbp_params(w, h, True),
+        mid, want=ibbp[:4])
+    work = os.path.join(ROOT, "x264_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    src = y4m_clip(work, "cli64", moving_frames(5, 64, 48, seed=3), 64, 48)
+    for key, configs in (
+            ("CLI defaults", (("defaults", ["264"]), ("defaults", ["mkv"]),
+                              ("defaults", ["mp4"]))),
+            ("CLI vbv, aud", (("vbv", VBV_CLI + ["264"]),
+                              ("aud", ["--aud", "264"]))),
+            ("CLI two passes", (("pass1", ["--bitrate", "200", "--pass", "1",
+                                           "--stats", "st", "264"]),
+                                ("pass2", ["--bitrate", "200", "--pass", "2",
+                                           "--stats", "st", "264"])))):
+        big.append((key, cli_case, ("phase 3 CLI 64x48 x5", work, src,
+                                    configs, dev_name)))
+    big.append(("mesh 64x128", mesh_case, (dev_name,)))
+    add(small, "64x48 x3", intra_params, frames3, decode=True)
+    add(small, "64x48 IPPP x5", ippp_params, mov, want=ippp, decode=True)
+    add(small, "64x48 IPPP CABAC x5", cabac_params, mov, want=ippp,
+        no_8x8=True, decode=True)
+    add(small, "64x48 IPPP CABAC CRF+AQ x5", crf_aq_params, mov, want=ippp,
+        no_8x8=True, decode=True)
+    add(small, "64x48 IBBP CAVLC x7", lambda w, h: ibbp_params(w, h, False),
+        mov7, want=ibbp, decode=True)
+    add(small, "64x48 IBBP CABAC x7", lambda w, h: ibbp_params(w, h, True),
+        mov7, want=ibbp, decode=True)
+    small.append(("farm 64x48", farm_case, (64, 48, 3, dev_name)))
+    return big, small
+
+
+def pool_init(threads):
+    import torch
+    torch.set_num_threads(threads)
+
+
+def cuda_cpu_phase(dev_name, mid, first, later):
+    """Phase 3: phase3_cases and the timed paths' CPU encodes (`first` go
+    ahead of the 640x360 cases, `later` after them) in a pool of worker
+    processes; refdec on the streams they name, each in a process of its
+    own, started as the cases end. Prints every case's lines in the order
+    of the cases, then the decoders'. Returns each case's result by key."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor, as_completed
+    ncpu = len(os.sched_getaffinity(0))
+    workers = max(1, min(4, ncpu // 2))
+    big, small = phase3_cases(dev_name, mid)
+    cases = list(first) + big + list(later) + small
+    pool = ProcessPoolExecutor(workers, mp_context=mp.get_context("spawn"),
+                               initializer=pool_init,
+                               initargs=(max(1, ncpu // workers),))
+    CHILDREN.append(pool)
+    futs = {pool.submit(fn, *args): key for key, fn, args in cases}
+    results, decoding = {}, []
+    for fut in as_completed(futs):
+        key = futs[fut]
+        try:
+            results[key] = fut.result()
+        except BaseException as e:      # a case's fail() exits its worker
+            fail(f"phase 3 case {key!r} failed: {e!r}")
+        for tag, stream, frames, w, h in results[key].get("decode", ()):
+            decoding.append((tag, refdec_start(stream, f"p3_{len(decoding)}"),
+                             frames, w, h))
+    pool.shutdown()
+    CHILDREN.remove(pool)
+    log(f"phase 3: {len(cases)} cases in {workers} worker processes")
+    for key, _, _ in cases:
+        for line in results[key].get("log", ()):
+            log(line)
+    for tag, job, frames, w, h in decoding:
+        decoded, dec_s = refdec_finish(job, w, h)
+        if not same_frames(decoded, frames):
+            fail(f"phase 3 {tag}: refdec does not decode the CUDA stream to "
+                 f"its reconstruction")
+        log(f"phase 3 {tag}: refdec decodes the CUDA stream to the CUDA "
+            f"reconstruction ({dec_s:.1f} s)")
+    return results
+
+
+# ------------------------------------------- phase 10: farm, mesh, CLI at 1080p
+FARM_HOOKS = (("intra", "decide_iframe", "decide"),
+              ("inter", "p_analyse", "analyse"),
+              ("farm", "commit_batch", "commit_batched"),
+              ("intra", "iframe_cavlc_tail", "cavlc_deblock"),
+              ("inter", "p_merge_levels", "merge_cbp_skip"),
+              ("inter", "p_finish", "cavlc_deblock"),
+              ("intra", "finalize_slice", "finalize_slice"))
+MESH_HOOKS = (("intra", "decide_iframe", "decide"),
+              ("mesh", "commit_batch", "commit_batched"),
+              ("intra", "iframe_cavlc_tail", "cavlc"),
+              ("inter", "encode_pframe", "p_band"))
+N_FARM_FRAMES = 3     # 1080p farm: I P P per stream
+N_CLI_FRAMES = 6      # 1080p CLI: ultrafast IPPPPP
+
+
+def psnr_y(a, b):
+    import numpy as np
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return 99.0 if mse == 0 else float(10 * np.log10(255.0 ** 2 / mse))
+
+
+def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
+    """Phase 10: the farm (S = 2, I P P at the farm's scope: preset medium
+    IPPP, CQP 26, CAVLC, weighted_pred 0; stream 0 the bench's clip,
+    stream 1 the same clip mirrored), the mesh (1 stream x 4 bands of 17
+    MB rows, I then P) and the CLI (a 6-frame y4m written by the port's
+    Y4MWriter, preset ultrafast, ABR with VBV and nal-hrd cbr, to .mp4) at
+    1920x1080 on the card: fps, commit launches per frame position (1),
+    stage times, bytes; PSNR of every reconstruction; the CLI's first two
+    frames equal a CPU run's."""
+    import numpy as np
+    frames0 = [mb_pad(f, w, h) for f in clip[:N_FARM_FRAMES]]
+    frames1 = [[np.ascontiguousarray(p[:, ::-1]) for p in f]
+               for f in frames0]
+    clips = [frames0, frames1]
+    res = {}
+    # ---- farm: fps from a run without the stage timer, stages from a
+    # second run (its streams must equal the first's) ----
+    C.commit.launches = 0
+    streams, recons, launches, secs = farm_run(
+        torch, C, farm_params(w, h), clips, dev)
+    if launches != [1] * N_FARM_FRAMES or \
+            C.commit.launches != N_FARM_FRAMES:
+        fail(f"phase 10 farm: commit launches per frame position {launches}"
+             f", expected 1 each")
+    again, _, _, t_secs, stages = farm_run(
+        torch, C, farm_params(w, h), clips, dev, timer=FARM_HOOKS)
+    if again != streams:
+        fail("phase 10 farm: the timed run's streams differ")
+    psnr = [[round(psnr_y(r[0][:h], c[i][0][:h]), 2)
+             for i, r in enumerate(rs)] for rs, c in zip(recons, clips)]
+    if min(min(p) for p in psnr) < 30:
+        fail(f"phase 10 farm: PSNR Y {psnr}")
+    res["farm"] = {"fps": N_FARM_FRAMES * 2 / secs, "launches": launches,
+                   "stages": stages}
+    log(f"phase 10 farm S=2 x {N_FARM_FRAMES} x 1080p (I P P, one batched "
+        f"commit per frame position): fps {res['farm']['fps']:.4f} (frames "
+        f"x streams / s; {secs:.3f} s, first position included); commit "
+        f"launches per frame position {launches}; bytes "
+        f"{[frame_bytes(s) for s in streams]}; PSNR Y {psnr}; stages ms per "
+        f"frame position (a second run, {t_secs:.3f} s, streams equal; host "
+        f"clock, synchronised around each stage): " + json.dumps(stages))
+    # ---- mesh: the same, fps untimed, stages from a second run ----
+    C.commit.launches = 0
+    (intra_o, p_o), m_l, m_s, layout = mesh_run(
+        torch, C, dev, [frames0[0]], [frames0[1]], band_rows)
+    if m_l != [1, 0] or C.commit.launches != 1:
+        fail(f"phase 10 mesh: commit launches {m_l}, expected 1 and 0")
+    # the batched entry of the kernel line: the mesh I step's launches
+    res["launches"] = m_l[0]
+    with StageTimer(torch, None, hooks=MESH_HOOKS, dpb_push=False) as timer:
+        (intra_t, p_t), _, m_ts, _ = mesh_run(
+            torch, C, dev, [frames0[0]], [frames0[1]], band_rows)
+    if not all(torch.equal(a.cpu(), b.cpu()) for a, b in
+               ((intra_o[0], intra_t[0]), (p_o[0], p_t[0]))):
+        fail("phase 10 mesh: the timed run's words differ")
+    rec_i = [np.concatenate(intra_o[2][c][0].cpu().numpy(), axis=0)
+             for c in range(3)]
+    rec_p = [np.concatenate(p_o[2][c][0].cpu().numpy(), axis=0)
+             for c in range(3)]
+    m_psnr = [round(psnr_y(rec_i[0], frames0[0][0]), 2),
+              round(psnr_y(rec_p[0], frames0[1][0]), 2)]
+    if min(m_psnr) < 30:
+        fail(f"phase 10 mesh: PSNR Y {m_psnr}")
+    hb = 4 * 16 * band_rows
+    m_bytes = mesh_bytes(mesh_params(w, hb), intra_o, p_o, 0, band_rows)
+    res["mesh"] = {"fps": 2 / sum(m_s), "launches": m_l,
+                   "stages": timer.ms}
+    log(f"phase 10 mesh 1 stream x 4 bands of 17 MB rows at 1080p (layout "
+        f"{layout.shape} of make_mesh(4); I step, then P step): fps "
+        f"{res['mesh']['fps']:.4f} ({m_s[0]:.3f} s I, {m_s[1]:.3f} s P); "
+        f"commit launches {m_l}; {len(m_bytes)} bytes (band bits I "
+        f"{intra_o[1][0].tolist()}, P {p_o[1][0].tolist()}); PSNR Y "
+        f"{m_psnr}; stages ms (a second run, {sum(m_ts):.3f} s, words "
+        f"equal; host clock, synchronised around each stage): "
+        + json.dumps(timer.ms))
+    # ---- CLI ----
+    work = os.path.join(ROOT, "x264_tpu_torch", "_build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    src = y4m_clip(work, "cli1080", clip[:N_CLI_FRAMES], w, h)
+    opts = ["--preset", "ultrafast", "--bitrate", "8000", "--vbv-maxrate",
+            "8000", "--vbv-bufsize", "16000", "--nal-hrd", "cbr"]
+    C.commit.launches = 0
+    out, _, secs = cli_run("cuda", work, "cli1080", src, opts + ["mp4"])
+    cli_launches = C.commit.launches
+    if cli_launches != N_CLI_FRAMES:
+        fail(f"phase 10 CLI: {cli_launches} commit launches for "
+             f"{N_CLI_FRAMES} frames")
+    with StageTimer(torch, None, dpb_push=False) as timer:
+        again, _, _ = cli_run("cuda", work, "cli1080t", src, opts + ["mp4"])
+    if again != out:
+        fail("phase 10 CLI: the timed run's output differs")
+    res["cli"] = {"fps": N_CLI_FRAMES / secs, "launches": cli_launches,
+                  "stages": timer.ms, "calls": timer.calls}
+    log(f"phase 10 CLI 1080p x{N_CLI_FRAMES} (y4m by Y4MWriter, preset "
+        f"ultrafast, ABR 8000 kb/s, VBV, nal-hrd cbr, .mp4; "
+        f"cli.main --device cuda): fps {res['cli']['fps']:.4f} ({secs:.3f} "
+        f"s, reading and muxing included); commit launches {cli_launches} "
+        f"(1 per frame); {len(out)} bytes; stages ms summed over the "
+        f"clip, and their calls (a second run, output equal): "
+        + json.dumps(res["cli"]["stages"]) + " "
+        + json.dumps(res["cli"]["calls"]))
+    # its first two frames, on the card and on the CPU: a case of phase 3
+    res["cli_case"] = ("CLI 1080p frames 0-1", cli_case, (
+        "phase 10 CLI 1080p", work, src,
+        (("frames 0-1", opts + ["--frames", "2", "264"]),), "cuda"))
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -638,8 +1455,7 @@ def main():
     sys.path.insert(0, ROOT)
     from bench import synth_clip
     from x264_tpu_torch.encoder.encoder import (TYPE_B, TYPE_IDR, TYPE_P,
-                                                Encoder, Picture,
-                                                annexb_bytes)
+                                                Encoder, Picture)
     from x264_tpu_torch.ops import commit as C
 
     dev = torch.device("cuda")
@@ -682,9 +1498,71 @@ def main():
                 if "registers" in line or "Compiling entry" in line:
                     log("phase 1 ptxas: " + line.strip())
 
-    # ---- phase 2: kernels vs plain version on the card ----
     mark("1 build")
     clip = synth_clip(max(N_DEFAULT_FRAMES, N_PIR_FRAMES))
+    # ---- phase 8 (first): the default path, 5 x 1080p with B frames.
+    # refdec, started on its stream in a process of its own at the lowest
+    # priority on one core, takes minutes: it runs beside the phases that
+    # follow and is waited for after phase 3 ----
+    p8 = default_params(1920, 1080)
+    clip8 = clip[:N_DEFAULT_FRAMES]
+    adaptive_types = decided_types(p8, clip8, dev)
+    if TYPE_B in adaptive_types:
+        log(f"phase 8: the adaptive B-run decision codes {adaptive_types}")
+    else:
+        p8.bframe_adaptive = 0
+        log(f"phase 8: the adaptive B-run decision (B_ADAPT_FAST) codes no "
+            f"B frame on this clip ({adaptive_types}): the phase runs with "
+            f"bframe_adaptive = 0, everything else at its default")
+    p8.analyse.psnr = True
+    enc8 = Encoder(p8, device=dev)
+    torch.cuda.synchronize()
+    C.commit.launches = 0
+    t0 = time.time()
+    stream8, outs8 = encode_stream(enc8, clip8, Picture)
+    torch.cuda.synchronize()
+    wall8 = time.time() - t0
+    launches_d = C.commit.launches
+    refdec8 = refdec_start(stream8, "default", background=True)
+    types8 = [o.i_type for o in outs8]
+    n_ip = sum(t != TYPE_B for t in types8)
+    log(f"phase 8 default path: {len(outs8)} frames, types {types8} (coding "
+        f"order), pts {[o.pts for o in outs8]}, {len(stream8)} bytes, bytes "
+        f"by type {enc8.stats['bytes_by_type']}, bytes per frame "
+        f"{frame_bytes(stream8)}, QPs {[o.qp for o in outs8]}, commit "
+        f"launches {launches_d} (I + P frames: {n_ip}), B MBs "
+        f"{enc8.stats['mb'].get('B')} (direct counts the skipped MBs too), "
+        f"P MBs {enc8.stats['mb']['P']}, weightp frames "
+        f"{enc8.stats.get('weightp_frames', 0)}")
+    if len(outs8) != N_DEFAULT_FRAMES or types8[0] != TYPE_IDR:
+        fail(f"default path: {len(outs8)} frames, types {types8}")
+    if TYPE_B not in types8:
+        fail(f"default path: no B frame among {types8}")
+    # CRF sets the QPs, so a re-encode cannot be read off them: the path
+    # must simply make one launch per I or P frame and none per B frame
+    if launches_d != n_ip:
+        fail(f"commit launches {launches_d} != {n_ip} I and P frames")
+    for o in outs8:
+        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
+        if shapes != [(1080, 1920), (540, 960), (540, 960)]:
+            fail(f"recon shapes {shapes}")
+        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
+            fail(f"PSNR {o.psnr} (expected finite and > 30 dB)")
+    log("phase 8 PSNR Y/U/V per frame: "
+        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
+                   for o in outs8))
+    # the timed paths' first frames against the CPU port's: cases of phase
+    # 3 (`prefixes`: key -> the path's stream, which must begin with the
+    # CPU's); the CPU port's frame 0 of the default path sees all of the
+    # clip in its lookahead, then dispatches only the IDR
+    pc8 = default_params(1920, 1080)
+    pc8.bframe_adaptive = p8.bframe_adaptive
+    key8 = "phase 8 1080p default frame 0"
+    first_cases = [(key8, cpu_default_frame0, (key8, pc8, clip8))]
+    later_cases, prefixes = [], {key8: stream8}
+
+    # ---- phase 2: kernels vs plain version on the card ----
+    mark("8 default path (B frames, MB-tree)")
     enc_big = Encoder(intra_params(1920, 1080), device=dev)
     qp_i = enc_big.rc.start(TYPE_IDR, -1, frame_idx=0)   # via ip_factor
     rng = np.random.default_rng(5)
@@ -783,303 +1661,12 @@ def main():
         log(f"phase 2 frame kernel, where a 1080p I16+I4 frame's time goes "
             f"({grid or 'all'} blocks): "
             + json.dumps(kernel_stats(torch, C, args, kw, grid)))
-
-    # ---- phase 8: the default path, 8 x 1080p with B frames. It runs
-    # before phase 3: refdec, started on its stream in a process of its
-    # own, takes minutes, runs beside phase 3's checks, which time
-    # nothing, and is waited for before phase 4, so that every fps and
-    # every stage time is taken with nothing else running ----
-    mark("2 mixed kernel on a real P frame, timings, counters")
-    p8 = default_params(1920, 1080)
-    clip8 = clip[:N_DEFAULT_FRAMES]
-    adaptive_types = decided_types(p8, clip8, dev)
-    if TYPE_B in adaptive_types:
-        log(f"phase 8: the adaptive B-run decision codes {adaptive_types}")
-    else:
-        p8.bframe_adaptive = 0
-        log(f"phase 8: the adaptive B-run decision (B_ADAPT_FAST) codes no "
-            f"B frame on this clip ({adaptive_types}): the phase runs with "
-            f"bframe_adaptive = 0, everything else at its default")
-    p8.analyse.psnr = True
-    enc8 = Encoder(p8, device=dev)
-    torch.cuda.synchronize()
-    C.commit.launches = 0
-    t0 = time.time()
-    stream8, outs8 = encode_stream(enc8, clip8, Picture)
-    torch.cuda.synchronize()
-    wall8 = time.time() - t0
-    launches_d = C.commit.launches
-    refdec8 = refdec_start(stream8, "default")      # read before phase 4
-    types8 = [o.i_type for o in outs8]
-    n_ip = sum(t != TYPE_B for t in types8)
-    log(f"phase 8 default path: {len(outs8)} frames, types {types8} (coding "
-        f"order), pts {[o.pts for o in outs8]}, {len(stream8)} bytes, bytes "
-        f"by type {enc8.stats['bytes_by_type']}, bytes per frame "
-        f"{frame_bytes(stream8)}, QPs {[o.qp for o in outs8]}, commit "
-        f"launches {launches_d} (I + P frames: {n_ip}), B MBs "
-        f"{enc8.stats['mb'].get('B')} (direct counts the skipped MBs too), "
-        f"P MBs {enc8.stats['mb']['P']}, weightp frames "
-        f"{enc8.stats.get('weightp_frames', 0)}")
-    if len(outs8) != N_DEFAULT_FRAMES or types8[0] != TYPE_IDR:
-        fail(f"default path: {len(outs8)} frames, types {types8}")
-    if TYPE_B not in types8:
-        fail(f"default path: no B frame among {types8}")
-    # CRF sets the QPs, so a re-encode cannot be read off them: the path
-    # must simply make one launch per I or P frame and none per B frame
-    if launches_d != n_ip:
-        fail(f"commit launches {launches_d} != {n_ip} I and P frames")
-    for o in outs8:
-        shapes = [tuple(np.asarray(r).shape) for r in o.recon]
-        if shapes != [(1080, 1920), (540, 960), (540, 960)]:
-            fail(f"recon shapes {shapes}")
-        if not all(np.isfinite(x) and x > 30.0 for x in o.psnr):
-            fail(f"PSNR {o.psnr} (expected finite and > 30 dB)")
-    log("phase 8 PSNR Y/U/V per frame: "
-        + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
-                   for o in outs8))
-    # the CPU port's frame 0: its lookahead takes all 8 frames (MB-tree
-    # reaches frame 0 from them), then only the IDR is dispatched
-    pc8 = default_params(1920, 1080)
-    pc8.bframe_adaptive = p8.bframe_adaptive
-    enc_c = Encoder(pc8, device="cpu")
-    t0 = time.time()
-    s_cpu8 = annexb_bytes(enc_c.headers())
-    for i, f in enumerate(clip8):
-        enc_c.encode(Picture(f, pts=i))
-    enc_c._pipe_depth = 0              # the flush call dispatches one frame
-    nals, out = enc_c.encode(None)
-    s_cpu8 += annexb_bytes(nals)
-    t_cpu8 = time.time() - t0
-    if out is None or out.i_type != TYPE_IDR:
-        fail("the CPU port's first default-path picture is no IDR")
-    if not stream8.startswith(s_cpu8):
-        fail("1080p default frame 0: CUDA stream differs from the CPU port's")
-    log(f"phase 8 1080p default frame 0: CUDA stream == CPU stream "
-        f"({len(s_cpu8)} bytes with the headers, QP {out.qp}; CPU "
-        f"{t_cpu8:.1f} s with the lookahead of 8 frames)")
-
-    # ---- phase 3: 64x48 stream, CUDA vs CPU, refdec ----
-    mark("8 default path (B frames, MB-tree) and its CPU frame 0")
-    yy, xx = np.mgrid[0:48, 0:64]
-    frames3 = []
-    for i in range(3):
-        y = np.clip(128 + 60 * np.sin(xx / 23 + i) * np.cos(yy / 17)
-                    + rng.integers(-8, 8, (48, 64)), 0, 255).astype(np.uint8)
-        u = np.clip(128 + 40 * np.sin(xx[::2, ::2] / 31 + i), 0,
-                    255).astype(np.uint8)
-        v = np.clip(128 + 40 * np.cos(yy[::2, ::2] / 29 - i), 0,
-                    255).astype(np.uint8)
-        frames3.append([y, u, v])
-    p3 = intra_params(64, 48)
-    p3.full_recon = True
-    s_gpu, o_gpu = encode_stream(Encoder(p3, device=dev), frames3, Picture)
-    s_cpu, _ = encode_stream(Encoder(p3, device="cpu"), frames3, Picture)
-    if s_gpu != s_cpu:
-        fail("64x48 CUDA and CPU streams differ")
-    decoded = refdec_decode(s_gpu, 64, 48)
-    if len(decoded) != 3 or not all(
-            np.array_equal(d[c], o.recon[c])
-            for d, o in zip(decoded, o_gpu) for c in range(3)):
-        fail("refdec does not decode the CUDA stream to its recon")
-    log(f"phase 3 64x48 x3: CUDA stream == CPU stream ({len(s_gpu)} bytes);"
-        " refdec decodes it to the CUDA reconstruction")
-    pp = ippp_params(64, 48)
-    pp.full_recon = True
-    mov = moving_frames(5, 64, 48)
-    enc_g = Encoder(pp, device=dev)
-    s_gpu, o_gpu = encode_stream(enc_g, mov, Picture)
-    s_cpu, _ = encode_stream(Encoder(pp, device="cpu"), mov, Picture)
-    if [o.i_type for o in o_gpu] != [TYPE_IDR] + [TYPE_P] * 4:
-        fail(f"64x48 IPPP frame types {[o.i_type for o in o_gpu]}")
-    if s_gpu != s_cpu:
-        fail("64x48 IPPP CUDA and CPU streams differ")
-    decoded = refdec_decode(s_gpu, 64, 48)
-    if len(decoded) != 5 or not all(
-            np.array_equal(d[c], o.recon[c])
-            for d, o in zip(decoded, o_gpu) for c in range(3)):
-        fail("refdec does not decode the CUDA IPPP stream to its recon")
-    log(f"phase 3 64x48 IPPP x5: CUDA stream == CPU stream ({len(s_gpu)} "
-        f"bytes, P MBs {enc_g.stats['mb']['P']}, weightp frames "
-        f"{enc_g.stats.get('weightp_frames', 0)}); refdec decodes it to "
-        f"the CUDA reconstruction")
-    mid = synth_clip(4, w=640, h=360)
-    t0 = time.time()
-    s_gpu, o_gpu = encode_stream(Encoder(ippp_params(640, 360), device=dev),
-                                 mid, Picture)
-    t_gpu = time.time() - t0
-    t0 = time.time()
-    s_cpu, _ = encode_stream(Encoder(ippp_params(640, 360), device="cpu"),
-                             mid, Picture)
-    t_cpu = time.time() - t0
-    if [o.i_type for o in o_gpu] != [TYPE_IDR] + [TYPE_P] * 3:
-        fail(f"640x360 IPPP frame types {[o.i_type for o in o_gpu]}")
-    if s_gpu != s_cpu:
-        fail("640x360 IPPP CUDA and CPU streams differ")
-    log(f"phase 3 640x360 IPPP x4: CUDA stream == CPU stream ({len(s_gpu)} "
-        f"bytes; CUDA {t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
-
-    mark("3 CUDA vs CPU streams, CAVLC")
-    # CABAC (trellis on): the same checks, then CRF with AQ
-    for label, make, frames_c, w, h, dec in (
-            ("64x48 IPPP CABAC x5", cabac_params, mov, 64, 48, True),
-            ("64x48 IPPP CABAC CRF+AQ x5", crf_aq_params, mov, 64, 48, True),
-            ("640x360 IPPP CABAC x4", cabac_params, mid, 640, 360, False)):
-        pc = make(w, h)
-        pc.full_recon = dec
-        enc_g = Encoder(pc, device=dev)
-        t0 = time.time()
-        s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture)
-        t_gpu = time.time() - t0
-        t0 = time.time()
-        s_cpu, _ = encode_stream(Encoder(make(w, h), device="cpu"), frames_c,
-                                 Picture)
-        t_cpu = time.time() - t0
-        want = [TYPE_IDR] + [TYPE_P] * (len(frames_c) - 1)
-        if [o.i_type for o in o_gpu] != want:
-            fail(f"{label}: frame types {[o.i_type for o in o_gpu]}")
-        if s_gpu != s_cpu:
-            fail(f"{label}: CUDA and CPU streams differ")
-        if enc_g.stats["mb"]["P"]["8x8"] != 0:
-            fail(f"{label}: a CABAC frame coded P_8x8 MBs")
-        note = ""
-        if dec:
-            decoded = refdec_decode(s_gpu, w, h)
-            if len(decoded) != len(frames_c) or not all(
-                    np.array_equal(d[c], o.recon[c])
-                    for d, o in zip(decoded, o_gpu) for c in range(3)):
-                fail(f"{label}: refdec does not decode the CUDA stream to "
-                     f"its recon")
-            note = "; refdec decodes it to the CUDA reconstruction"
-        log(f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
-            f"bytes, QPs {[o.qp for o in o_gpu]}, P MBs "
-            f"{enc_g.stats['mb']['P']}; CUDA {t_gpu:.1f} s, CPU "
-            f"{t_cpu:.1f} s){note}")
-
-    mark("3 CUDA vs CPU streams, CABAC and CRF+AQ")
-    # B frames: IBBP with a fixed run, CAVLC and CABAC, then the defaults
-    ibbp = [TYPE_IDR, TYPE_P, TYPE_B, TYPE_B, TYPE_P, TYPE_B, TYPE_B]
-    mov28 = moving_frames(28, 64, 48, seed=3)
-    decoding = []
-    for label, make, frames_c, w, h, want in (
-            ("64x48 IBBP CAVLC x7", lambda w, h: ibbp_params(w, h, False),
-             moving_frames(7, 64, 48), 64, 48, ibbp),
-            ("64x48 IBBP CABAC x7", lambda w, h: ibbp_params(w, h, True),
-             moving_frames(7, 64, 48), 64, 48, ibbp),
-            ("640x360 IBBP CAVLC x4", lambda w, h: ibbp_params(w, h, False),
-             mid, 640, 360, ibbp[:4]),
-            ("640x360 IBBP CABAC x4", lambda w, h: ibbp_params(w, h, True),
-             mid, 640, 360, ibbp[:4]),
-            ("64x48 defaults (CRF, MB-tree, AQ, adaptive B) x28",
-             default_params, mov28, 64, 48, None)):
-        dec = w == 64
-        pc = make(w, h)
-        pc.full_recon = dec
-        enc_g = Encoder(pc, device=dev)
-        t0 = time.time()
-        s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture)
-        t_gpu = time.time() - t0
-        t0 = time.time()
-        s_cpu, _ = encode_stream(Encoder(make(w, h), device="cpu"), frames_c,
-                                 Picture)
-        t_cpu = time.time() - t0
-        types_b = [o.i_type for o in o_gpu]
-        if len(o_gpu) != len(frames_c) or (want and types_b != want) \
-                or TYPE_B not in types_b:
-            fail(f"{label}: frame types {types_b}")
-        if s_gpu != s_cpu:
-            fail(f"{label}: CUDA and CPU streams differ")
-        if dec:             # decoded beside the configurations that follow
-            decoding.append((label, refdec_start(s_gpu, f"b{len(decoding)}"),
-                             o_gpu))
-        log(f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
-            f"bytes, types {types_b}, QPs {[o.qp for o in o_gpu]}, B MBs "
-            f"{enc_g.stats['mb']['B']}; CUDA {t_gpu:.1f} s, CPU "
-            f"{t_cpu:.1f} s)")
-    for label, job, o_gpu in decoding:
-        if not decodes_to(refdec_finish(job, 64, 48)[0], o_gpu):
-            fail(f"{label}: refdec does not decode the CUDA stream to its "
-                 f"recon")
-        log(f"phase 3 {label}: refdec decodes the CUDA stream to the CUDA "
-            f"reconstruction")
-
-    mark("3 CUDA vs CPU streams, B frames and the defaults")
-    # the presets below medium and the options around the P path, at 64x48
-    # and 640x360; refdec decodes the 640x360 streams beside the encodes.
-    # Under PIR, Encoder.intra_refresh() ahead of frame 1 starts the column
-    # sweep there (left alone it starts at frame keyint)
-    def refresh_at_1(enc, i):
-        if i == 1 and enc.p.intra_refresh:
-            enc.intra_refresh()
-
-    mid3 = mid[:3]
-    decoding = []
-    for label, make in (
-            ("veryfast", preset_params("veryfast")),
-            ("fast", preset_params("fast")),
-            ("NR 200", option_params(analyse__noise_reduction=200)),
-            ("PIR keyint 8", option_params(intra_refresh=True,
-                                           keyint_max=8)),
-            # tests/test_pcm_e2e.py's preset: refdec filters I_PCM MBs
-            # when the deblock is on (libavcodec does not), so it stays off
-            ("PCM", pcm_params),
-            ("SSIM", option_params(analyse__ssim=True))):
-        for w, h, frames_c in ((64, 48, mov), (640, 360, mid3)):
-            pc = make(w, h)
-            pc.full_recon = True
-            enc_g = Encoder(pc, device=dev)
-            t0 = time.time()
-            s_gpu, o_gpu = encode_stream(enc_g, frames_c, Picture,
-                                         refresh_at_1)
-            t_gpu = time.time() - t0
-            enc_c = Encoder(make(w, h), device="cpu")
-            t0 = time.time()
-            s_cpu, o_cpu = encode_stream(enc_c, frames_c, Picture,
-                                         refresh_at_1)
-            t_cpu = time.time() - t0
-            types_o = [o.i_type for o in o_gpu]
-            tag = f"{label} {w}x{h} x{len(frames_c)}"
-            if len(o_gpu) != len(frames_c):
-                fail(f"{tag}: {len(o_gpu)} frames")
-            if s_gpu != s_cpu:
-                fail(f"{tag}: CUDA and CPU streams differ")
-            extra = ""
-            if label == "SSIM":
-                d = max(abs(a.ssim - b.ssim) for a, b in zip(o_gpu, o_cpu))
-                if d > 1e-6:
-                    fail(f"{tag}: SSIM CUDA vs CPU differs by {d}")
-                extra = (f", SSIM {[round(o.ssim, 6) for o in o_gpu]} "
-                         f"(CUDA vs CPU within {d:.2e})")
-            if label == "PIR keyint 8":
-                extra = f", keyframes {[o.b_keyframe for o in o_gpu]}"
-                if not o_gpu[1].b_keyframe:
-                    fail(f"{tag}: the queued refresh did not start a sweep "
-                         f"at frame 1")
-            if w == 640:
-                decoding.append((tag, refdec_start(
-                    s_gpu, f"o{len(decoding)}"), o_gpu, w, h))
-            log(f"phase 3 {tag}: CUDA stream == CPU stream ({len(s_gpu)} "
-                f"bytes, types {types_o}, QPs {[o.qp for o in o_gpu]}, P MBs "
-                f"{enc_g.stats.get('mb', {}).get('P')}{extra}; CUDA "
-                f"{t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
-    for tag, job, o_gpu, w, h in decoding:
-        decoded, dec_s = refdec_finish(job, w, h)
-        if not decodes_to(decoded, o_gpu):
-            fail(f"{tag}: refdec does not decode the CUDA stream to its "
-                 f"recon")
-        log(f"phase 3 {tag}: refdec decodes the CUDA stream to the CUDA "
-            f"reconstruction ({dec_s:.1f} s)")
-
-    mark("3 CUDA vs CPU streams, presets and options")
-    decoded8, refdec_s = refdec_finish(refdec8, 1920, 1080, timeout=900)
-    if not decodes_to(decoded8, outs8):
-        fail("refdec does not decode the default path's stream to its "
-             "reconstructions")
-    log(f"phase 8 refdec decodes the default path's stream ({len(decoded8)} "
-        f"frames) to the CUDA reconstructions ({refdec_s:.1f} s, beside "
-        f"phase 3)")
+    mark("2 real P frames, timing, latency, counters")
+    batched = batched_phase(torch, C, dev, rng, clip, enc_big, qp_i, cap)
+    worst = max(worst, batched["worst"])
+    mark("2 the batched launch")
 
     # ---- phase 4: the all-intra path, 2 x 1080p through Encoder.encode --
-    mark("8 refdec of the default path, the wait that is left")
     p4 = intra_params(1920, 1080)
     p4.analyse.psnr = True
     enc = Encoder(p4, device=dev)
@@ -1107,17 +1694,15 @@ def main():
     log("phase 4 PSNR Y/U/V per frame: "
         + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
                    for o in outs))
-    # a CPU encode of frame 0 alone: headers and the IDR, which is how
-    # the path's own stream must begin
-    s_cpu1, _ = encode_stream(Encoder(intra_params(1920, 1080),
-                                      device="cpu"), clip[:1], Picture)
-    if not stream.startswith(s_cpu1):
-        fail("1080p frame 0: CUDA stream differs from the CPU port's")
-    log(f"phase 4 1080p frame 0: CUDA stream == CPU stream "
-        f"({len(s_cpu1)} bytes with the headers)")
+    # a CPU encode of frame 0 alone (headers and the IDR), which is how
+    # the path's own stream must begin: a case of phase 3
+    key = "phase 4 1080p frame 0"
+    later_cases.append((key, cpu_prefix, (key, intra_params(1920, 1080),
+                                          clip[:1])))
+    prefixes[key] = stream
 
     # ---- phase 5: the P main path, IDR + 3 P at 1080p ----
-    mark("4 all-intra path and its CPU frame 0")
+    mark("4 all-intra path")
     p5 = ippp_params(1920, 1080)
     p5.analyse.psnr = True
     enc5 = Encoder(p5, device=dev)
@@ -1193,24 +1778,27 @@ def main():
     log(f"phase 7 bytes per frame, CABAC: {frame_bytes(stream7)}; CAVLC "
         f"(phase 5, the same frames): "
         f"{frame_bytes(stream5)[:N_CABAC_FRAMES]}")
-    t0 = time.time()
-    s_cpu7, _ = encode_stream(Encoder(cabac_params(1920, 1080),
-                                      device="cpu"), clip[:1], Picture)
-    t_cpu7 = time.time() - t0
-    if not stream7.startswith(s_cpu7):
-        fail("1080p CABAC frame 0: CUDA stream differs from the CPU port's")
-    log(f"phase 7 1080p CABAC frame 0: CUDA stream == CPU stream "
-        f"({len(s_cpu7)} bytes with the headers; CPU {t_cpu7:.1f} s)")
+    key = "phase 7 1080p CABAC frame 0"
+    later_cases.append((key, cpu_prefix, (key, cabac_params(1920, 1080),
+                                          clip[:1])))
+    prefixes[key] = stream7
 
     # ---- phase 9: 1080p ultrafast, and ultrafast with intra refresh ----
-    mark("7 IPPP CABAC path and its CPU frame 0")
+    mark("7 IPPP CABAC path")
     fast = {}
     for label, pir, n, timed in (
             ("ultrafast", False, N_FAST_FRAMES, (3, 4, 5)),
             ("intra refresh", True, N_PIR_FRAMES, (10, 11, 12))):
         fast[label] = fast_path(torch, C, label, ultrafast_params(
             1920, 1080, pir=pir), clip[:n], dev, qp_i, timed)
-        mark(f"9 1080p {label} path, its CPU frames 0-1, its stages")
+        later_cases.append(fast[label]["cpu_case"])
+        prefixes[fast[label]["cpu_case"][0]] = fast[label]["stream"]
+        mark(f"9 1080p {label} path, its stages")
+
+    # ---- phase 10: the farm, the mesh and the CLI at 1080p ----
+    full = full_width_phase(torch, C, dev, clip)
+    later_cases.append(full["cli_case"])
+    mark("10 1080p farm, mesh and CLI")
 
     # ---- phase 6: report ----
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
@@ -1229,6 +1817,28 @@ def main():
     if stream10 != stream8:
         fail("the timed default-path encode's stream differs from phase 8's")
     mark("6 B stage breakdown and trace")
+
+    # ---- phase 3: CUDA == CPU, in a pool of worker processes, beside the
+    # default path's decoder; then the wait for that decoder ----
+    results = cuda_cpu_phase("cuda", synth_clip(4, w=640, h=360),
+                             first_cases, later_cases)
+    for key, stream_k in prefixes.items():
+        _, s_cpu, cpu_s = results[key]["prefix"]
+        if not stream_k.startswith(s_cpu):
+            fail(f"{key}: CUDA stream differs from the CPU port's")
+        qp = results[key].get("qp")
+        log(f"{key}: CUDA stream == CPU stream ({len(s_cpu)} bytes with the "
+            f"headers{'' if qp is None else f', QP {qp}'}; CPU {cpu_s:.1f} "
+            f"s in phase 3's pool)")
+    mark("3 CUDA vs CPU: streams, CLI, farm, mesh, the paths' first frames")
+    decoded8, refdec_s = refdec_finish(refdec8, 1920, 1080, timeout=900)
+    if not same_frames(decoded8, [o.recon for o in outs8]):
+        fail("refdec does not decode the default path's stream to its "
+             "reconstructions")
+    log(f"phase 8 refdec decodes the default path's stream ({len(decoded8)} "
+        f"frames) to the CUDA reconstructions ({refdec_s:.1f} s since phase "
+        f"8, beside the phases after it)")
+    mark("8 refdec of the default path, the wait that is left")
     fps = N_FRAMES / wall
     fps5 = N_P_FRAMES / wall5
     fps7 = N_CABAC_FRAMES / wall7
@@ -1296,7 +1906,24 @@ def main():
         "mixed_no_i4_ultrafast_p_frame_bound_ms":
         real_p["mixed"]["bound_ms"],
         "mixed_no_i4_ultrafast_p_frame_bound_by":
-        real_p["mixed"]["bound_by"]}]}))
+        real_p["mixed"]["bound_by"]}, {
+        "name": "commit_frame_kernel, batched (B items per launch)",
+        "route": "cuda", "source": "x264_tpu_torch/csrc/commit.cu",
+        "replaces": "x264_tpu/ops/pallas/commit.py:672",
+        "launches": full["launches"], "max_abs_err": batched["worst"],
+        "ms": batched["band_ms"], "plain_ms": batched["band_plain_ms"],
+        "bound_ms": batched["band_bound_ms"],
+        "bound_by": batched["band_bound_by"], "library_ms": None,
+        "shape": "the mesh's I step on one 1080p frame: 4 bands of 17 MB "
+                 "rows in one launch",
+        "launches_farm_1080p": full["farm"]["launches"],
+        "launches_mesh_1080p": full["mesh"]["launches"],
+        "launches_cli_1080p": full["cli"]["launches"],
+        "s_1080p_frames": {str(S): {
+            "batched_ms": sum(t["batched_ms"]) / 2,
+            "singles_ms": sum(t["singles_ms"]) / 2,
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
+            for S, t in batched["timing"].items()}}]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
@@ -1307,13 +1934,14 @@ def main():
 def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     """Phase 9: one 1080p path at preset ultrafast through Encoder.encode
     on the card, the commit launches counted per dispatched frame (reset
-    just before, read just after), then frames 0-1 against a CPU encode of
-    the same two frames, then the P-frame stage breakdown while the clip
-    is encoded again (its stream must equal this one's): `timed_calls`
-    are the encode calls timed. Under intra refresh each frame's refresh
-    band (first and last column, empty while no sweep runs) is kept; the
-    sweep starts at frame keyint, where the keyframe becomes a P frame
-    and a recovery point. Returns what the report reads."""
+    just before, read just after), then the P-frame stage breakdown while
+    the clip is encoded again (its stream must equal this one's):
+    `timed_calls` are the encode calls timed. Frames 0-1 against a CPU
+    encode of the same two frames is a case of phase 3 ("cpu_case").
+    Under intra refresh each frame's refresh band (first and last column,
+    empty while no sweep runs) is kept; the sweep starts at frame keyint,
+    where the keyframe becomes a P frame and a recovery point. Returns
+    what the report reads."""
     import numpy as np
     from x264_tpu_torch.encoder.encoder import (TYPE_IDR, TYPE_P, Encoder,
                                                 Picture)
@@ -1381,22 +2009,16 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     log(f"phase 9 1080p {label} PSNR Y/U/V per frame: "
         + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
                    for o in outs))
-    params_cpu = params.copy()
-    t0 = time.time()
-    s_cpu, _ = encode_stream(Encoder(params_cpu, device="cpu"), clip[:2],
-                             Picture)
-    t_cpu = time.time() - t0
-    if not stream.startswith(s_cpu):
-        fail(f"1080p {label} frames 0-1: CUDA stream differs from the CPU "
-             f"port's")
-    log(f"phase 9 1080p {label} frames 0-1: CUDA stream == CPU stream "
-        f"({len(s_cpu)} bytes with the headers; CPU {t_cpu:.1f} s)")
     stages, stream2 = p_stage_breakdown(torch, params, clip, dev,
                                         timed_calls)
     if stream2 != stream:
         fail(f"the timed {label} encode's stream differs from phase 9's")
+    # frames 0-1 against the CPU port's: a case of phase 3
+    key = f"phase 9 1080p {label} frames 0-1"
     return {"fps": n / wall, "wall": wall, "launches": launches,
-            "stages": stages, "frames": n, "timed": list(timed_calls)}
+            "stages": stages, "frames": n, "timed": list(timed_calls),
+            "stream": stream,
+            "cpu_case": (key, cpu_prefix, (key, params.copy(), clip[:2]))}
 
 
 def stage_breakdown(torch, enc, planes, qp):
@@ -1488,7 +2110,7 @@ class StageTimer:
     synchronised before and after, and its host-clock time less that of
     the stages it calls (the commit inside the merge) goes to its stage.
     With `ranges`, every call also runs in a torch.profiler range
-    "stage:<name>"."""
+    "stage:<name>". `extra` adds (object, attribute, stage) hooks."""
 
     P_HOOKS = (("lookahead", "_search_pair", "lookahead_search"),
              ("inter", "p_fullpel_core", "fullpel"),
@@ -1530,14 +2152,18 @@ class StageTimer:
                ("lookahead", "_mbtree_finish", "mbtree_finish"))
 
     def __init__(self, torch, enc, ranges=False, hooks=P_HOOKS,
-                 dpb_push=True):
-        from x264_tpu_torch.encoder import bframe, inter, lookahead
-        mods = {"inter": inter, "lookahead": lookahead, "bframe": bframe}
+                 dpb_push=True, extra=()):
+        from x264_tpu_torch.encoder import (bframe, farm, inter, intra,
+                                            lookahead)
+        from x264_tpu_torch.parallel import mesh
+        mods = {"inter": inter, "lookahead": lookahead, "bframe": bframe,
+                "intra": intra, "farm": farm, "mesh": mesh}
         self.torch, self.ranges = torch, ranges
         self.ms, self.calls, self._inner = {}, {}, []
         self._hooks = [(mods[m], attr, stage) for m, attr, stage in hooks]
         if dpb_push:
             self._hooks.append((enc, "_dpb_push_entry", "dpb_push"))
+        self._hooks += list(extra)
 
     def _wrap(self, fn, stage):
         import contextlib
@@ -1757,5 +2383,100 @@ def device_profile(torch, enc, hooks, dpb_push=True):
             "stage_host_ms": host}, nals, out
 
 
+AB_VARIANTS = ("i16+i4", "mixed+i4", "mixed")
+
+
+def commit_ab_child(tree):
+    """One side of --commit-ab: build the commit kernel of the checkout at
+    `tree` and time its single-frame launch (B = 1) on the 1080p inputs of
+    phase 2: the I frame's commit (i16+i4, seeded as phase 2 seeds it) and
+    the commits of the encoder's own P frame 1 at preset medium (mixed+i4)
+    and at ultrafast (mixed). 3 warm-up launches, then 2 x 20 launches
+    (CUDA events). Prints one JSON line: each variant's times and a digest
+    of its outputs."""
+    import hashlib
+    import torch
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import x264_tpu_torch
+    if not os.path.abspath(x264_tpu_torch.__file__).startswith(tree + os.sep):
+        fail(f"--commit-ab: imported {x264_tpu_torch.__file__}, not {tree}")
+    from bench import synth_clip
+    from x264_tpu_torch.encoder.encoder import TYPE_IDR, Encoder
+    from x264_tpu_torch.ops import commit as C
+    dev = torch.device("cuda")
+    C.build_library()
+    C._library()
+    clip = synth_clip(2)
+    enc = Encoder(intra_params(1920, 1080), device=dev)
+    qp_i = enc.rc.start(TYPE_IDR, -1, frame_idx=0)
+    cases = {"i16+i4": commit_inputs(torch, enc, enc._pad_to_mb(clip[0]),
+                                     qp_i, seed=7, mixed=False, with_i4=True)}
+    for variant, make in (("mixed+i4", ippp_params),
+                          ("mixed", ultrafast_params)):
+        enc_p = Encoder(make(1920, 1080), device=dev)
+        enqueue(enc_p, clip[0], TYPE_IDR, 0)
+        cases[variant] = captured_commit(enc_p, clip[1], 1)
+    out = {}
+    for variant in AB_VARIANTS:
+        args, kw = cases[variant]
+        progs = []
+
+        def run():
+            progs.append(C.commit_launch(*args, **kw)[2])
+
+        cuda_ms(torch, run, 3)
+        runs = [cuda_ms(torch, run, 20) for _ in range(2)]
+        for prog in progs:
+            C.check_progress(prog, args[7])
+        got = C.commit_cuda(*args, **kw)
+        digest = hashlib.sha256()
+        for t in list(got[0].values()) + list(got[1]):
+            digest.update(t.cpu().numpy().tobytes())
+        out[variant] = {"ms": runs, "digest": digest.hexdigest()[:16]}
+    print(json.dumps({"tree": tree, "variants": out}), flush=True)
+
+
+def commit_ab(other):
+    """--commit-ab OTHER: the commit kernel's single-frame launch of the
+    checkout at OTHER (for example the parent commit, unpacked with git
+    archive into a directory that .gitignore lists) against this one's, on
+    one card, each in a process of its own in the order other, this,
+    this, other (commit_ab_child). Fails unless every run's outputs are
+    the same. Prints each run, each variant's mean times and change, and
+    the card's name and power limit."""
+    runs = []
+    for tree in (other, ROOT, ROOT, other):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--commit-ab-child", tree], capture_output=True,
+                           text=True, timeout=900)
+        if r.returncode != 0:
+            fail(f"--commit-ab run in {tree} exited {r.returncode}:\n"
+                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+        log(f"commit_ab {'other' if tree == other else 'this'}: "
+            + json.dumps(runs[-1]))
+    summary = {}
+    for variant in AB_VARIANTS:
+        if len({run["variants"][variant]["digest"] for run in runs}) != 1:
+            fail(f"--commit-ab: the {variant} outputs differ between runs")
+        ms = {side: [t for run in pair for t in run["variants"][variant]["ms"]]
+              for side, pair in (("other", (runs[0], runs[3])),
+                                 ("this", (runs[1], runs[2])))}
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        summary[variant] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                            "change": mean["this"] / mean["other"] - 1}
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    log(smi.stdout.strip())
+    log(json.dumps({"commit_ab": summary}))
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--commit-ab"]:
+        commit_ab(os.path.abspath(sys.argv[2]))
+    elif sys.argv[1:2] == ["--commit-ab-child"]:
+        commit_ab_child(sys.argv[2])
+    else:
+        main()

@@ -87,6 +87,17 @@ def _torch_args(inp):
     return args + [inp["mbw"], inp["mbh"]], kw
 
 
+def _scan(inp):
+    """x264_tpu's commit scan on numpy inputs."""
+    jkw = {k: jnp.asarray(inp[k]) for k in ("i4_mask", "i4_modes",
+                                             "is_intra") if k in inp}
+    if "inter_planes" in inp:
+        jkw["inter_planes"] = [jnp.asarray(p) for p in inp["inter_planes"]]
+    jargs = [jnp.asarray(inp[k]) for k in ("y", "u", "v", "i16_mode",
+                                           "chroma_mode", "qp_mb", "qpc_mb")]
+    return jintra._commit_scan(*jargs, inp["mbw"], inp["mbh"], **jkw)
+
+
 @pytest.fixture(scope="module")
 def commit_runs():
     """Per case: inputs, the port's commit_ref output, and the two JAX
@@ -94,15 +105,7 @@ def commit_runs():
     runs = {}
     for case in CASES:
         inp = _case_inputs(case)
-        jkw = {k: jnp.asarray(inp[k]) for k in ("i4_mask", "i4_modes",
-                                                 "is_intra") if k in inp}
-        if "inter_planes" in inp:
-            jkw["inter_planes"] = [jnp.asarray(p)
-                                   for p in inp["inter_planes"]]
-        jargs = [jnp.asarray(inp[k]) for k in ("y", "u", "v", "i16_mode",
-                                               "chroma_mode", "qp_mb",
-                                               "qpc_mb")]
-        scan = jintra._commit_scan(*jargs, inp["mbw"], inp["mbh"], **jkw)
+        scan = _scan(inp)
         pkw = {k: inp[k] for k in ("i4_mask", "i4_modes", "is_intra",
                                    "inter_planes") if k in inp}
         pallas = commit_i16_pallas(*[inp[k] for k in (
@@ -282,6 +285,87 @@ def test_commit_kernel_small_grid_and_stats(cuda_device, commit_runs, grid):
                           [r.cpu() for r in recon]))
     fields = dict(zip(tcommit.STATS_FIELDS, stats.sum(0).tolist()))
     assert fields["mbs"] == args[7] * args[8]
+
+
+# a batch is items of one shape and variant: the two seeds of the I16 case,
+# or one case twice
+BATCHES = [("i16_seed0", "i16_seed7"), ("i4", "i4"),
+           ("i4_mixed", "i4_mixed"), ("mixed", "mixed")]
+
+
+def _batch_calls(commit_runs, cases, device="cpu"):
+    calls = []
+    for case in cases:
+        args, kw = _torch_args(commit_runs[case]["inp"])
+        calls.append(([a.to(device) if isinstance(a, torch.Tensor) else a
+                       for a in args],
+                      {k: ([p.to(device) for p in v] if k == "inter_planes"
+                           else v.to(device)) for k, v in kw.items()}))
+    return calls
+
+
+def _random_item(rng, variant):
+    """One item of a random batch: random planes, I16 and chroma modes,
+    QPs, and (as the variant asks) I_4x4 flags and modes and intra flags,
+    at the size of the cases of the same variant."""
+    w, h = (48, 32) if variant == "i16" else (64, 48)
+    mbw, mbh = w // 16, h // 16
+    y, u, v = _content(w, h, int(rng.integers(1 << 30)))
+    qp = rng.integers(18, 40, (mbh, mbw)).astype(np.int32)
+    inp = dict(y=y, u=u, v=v,
+               i16_mode=rng.integers(0, 4, (mbh, mbw)).astype(np.int32),
+               chroma_mode=rng.integers(0, 4, (mbh, mbw)).astype(np.int32),
+               qp_mb=qp, qpc_mb=np.asarray(chroma_qp(qp), np.int32),
+               mbw=mbw, mbh=mbh)
+    if variant != "i16":
+        inp["i4_mask"] = rng.random((mbh, mbw)) < 0.5
+        inp["i4_modes"] = rng.integers(0, 9, (mbh, mbw, 16)).astype(np.int32)
+    if variant == "mixed_i4":
+        inp["is_intra"] = (rng.random((mbh, mbw)) < 0.6) | inp["i4_mask"]
+        inp["inter_planes"] = _content(w, h, int(rng.integers(1 << 30)))
+    return inp
+
+
+# batches of 3 items with random modes (each item a frame of its own)
+RANDOM_BATCHES = ["i16", "i16_i4", "mixed_i4"]
+
+
+@pytest.mark.parametrize(
+    "cases", BATCHES + [f"random_{v}" for v in RANDOM_BATCHES],
+    ids=lambda c: c if isinstance(c, str) else "+".join(c))
+def test_commit_ref_batch_matches_scan_per_item(commit_runs, cases):
+    """commit_ref over a batch (a leading item axis) gives each item what
+    x264_tpu's scan gives it alone: pairs of the cases above, and batches
+    of 3 items with random modes; commit_batch hands back each item's
+    outputs."""
+    if isinstance(cases, str):
+        rng = np.random.default_rng(7)
+        inps = [_random_item(rng, cases[len("random_"):]) for _ in range(3)]
+        calls, refs = [_torch_args(inp) for inp in inps], map(_scan, inps)
+    else:
+        calls = _batch_calls(commit_runs, cases)
+        refs = (commit_runs[case]["scan"] for case in cases)
+    for ref, got in zip(refs, tcommit.commit_batch(calls)):
+        _assert_commit_equal(ref, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [None, 1])
+@pytest.mark.parametrize("cases", BATCHES, ids="+".join)
+def test_commit_kernel_batch_matches_ref(cuda_device, commit_runs, cases,
+                                         grid):
+    """One launch for the batch, each item equal to commit_ref's; with one
+    block the block walks every row of both items."""
+    args, kw = tcommit.stack_calls(_batch_calls(commit_runs, cases,
+                                                cuda_device))
+    n0 = tcommit.commit.launches
+    coeffs, recon, prog = tcommit.commit_launch(*args, grid=grid, **kw)
+    tcommit.check_progress(prog, args[7])
+    assert tcommit.commit.launches == n0 + 1
+    for b, case in enumerate(cases):
+        _assert_commit_equal(commit_runs[case]["port"],
+                             ({k: v[b].cpu() for k, v in coeffs.items()},
+                              [r[b].cpu() for r in recon]))
 
 
 # ---------------------------------------------------------------- decision

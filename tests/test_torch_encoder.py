@@ -205,13 +205,21 @@ def test_inter_frames_raise_not_implemented():
 
 def test_import_leaves_jax_out():
     """Every port module and chip_smoke import neither jax nor any module
-    of the x264_tpu package (the port keeps its own host modules)."""
+    of the x264_tpu package (the port keeps its own host modules); the
+    walk reaches the command line, the io modules, the farm and the mesh."""
+    new = ["cli", "encoder.farm", "parallel.mesh"] + [
+        "io." + m for m in ("y4m", "output", "mux", "timecode", "filters",
+                            "thread_input", "lavf")]
     code = ("import pkgutil, importlib, sys\n"
             "import x264_tpu_torch\n"
             "for m in pkgutil.walk_packages(x264_tpu_torch.__path__,\n"
             "                                'x264_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import chip_smoke\n"
+            f"new = {new!r}\n"
+            "missed = [m for m in new if 'x264_tpu_torch.' + m\n"
+            "          not in sys.modules]\n"
+            "assert not missed, missed\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "bad = [m for m in sys.modules if m == 'x264_tpu'\n"
             "       or m.startswith('x264_tpu.')]\n"

@@ -1,19 +1,24 @@
 """Helpers of the clip tests that run one configuration through both
 Encoders, x264_tpu's and the port's (tests/test_torch_presets*.py,
 test_torch_options.py, test_torch_recovery.py): encode a clip, compare
-what came out, decode the port's stream with tools/refdec.py."""
+what came out, decode the port's stream with tools/refdec.py; and of the
+command-line tests (tests/test_torch_cli*.py): write a y4m clip, run both
+CLIs on it."""
 
 import os
 import sys
 
 import numpy as np
 
+from x264_tpu import cli as jax_cli
 from x264_tpu import param_default_preset as jax_preset
 from x264_tpu.encoder.encoder import Encoder as JaxEncoder
 from x264_tpu.encoder.encoder import Picture
 from x264_tpu.entropy.nal import annexb_bytes
+from x264_tpu_torch import cli as port_cli
 from x264_tpu_torch import param_default_preset
 from x264_tpu_torch.encoder.encoder import Encoder
+from x264_tpu_torch.io.y4m import VideoInfo, Y4MWriter
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -96,3 +101,38 @@ def refdec_matches(stream, recons):
     assert len(decoded) == len(recons)
     return [all(np.array_equal(d[c], r[c]) for c in range(3))
             for d, r in zip(decoded, recons)]
+
+
+def write_clip(path, n=8, w=48, h=32, seed=0):
+    """A y4m of a moving pattern with noise: n frames of w x h, 25 fps."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    wr = Y4MWriter(str(path), VideoInfo(w, h, 25, 1))
+    for i in range(n):
+        y = np.clip(120 + 70 * np.sin((xx + 3 * i) / 9) * np.cos((yy + i) / 7)
+                    + rng.integers(-5, 5, (h, w)), 0, 255).astype(np.uint8)
+        u = np.clip(128 + 30 * np.sin((xx[::2, ::2] + i) / 5), 0,
+                    255).astype(np.uint8)
+        v = np.clip(128 + 30 * np.cos((yy[::2, ::2] - i) / 6), 0,
+                    255).astype(np.uint8)
+        wr.write_frame([y, u, v])
+    wr.close()
+
+
+def cli_run(side, tmp, name, ext, extra):
+    """x264_tpu's CLI (side "jax") or the port's on the CPU (side "port")
+    on tmp/in.y4m with `extra` options, the reconstruction dumped ->
+    (exit code, output bytes, dump-yuv bytes)."""
+    mod, dev = ((jax_cli, []) if side == "jax"
+                else (port_cli, ["--device", "cpu"]))
+    out = tmp / f"{name}_{side}.{ext}"
+    dump = tmp / f"{name}_{side}.y4m"
+    rc = mod.main(dev + ["--quiet"] + extra + [
+        "--dump-yuv", str(dump), "-o", str(out), str(tmp / "in.y4m")])
+    return rc, out.read_bytes(), dump.read_bytes()
+
+
+def cli_both(tmp, name, ext, extra):
+    """cli_run on both sides -> {"jax": ..., "port": ...}."""
+    return {side: cli_run(side, tmp, name, ext, extra)
+            for side in ("jax", "port")}

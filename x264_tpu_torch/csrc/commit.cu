@@ -24,7 +24,14 @@
 // blocks form a chain of their own.
 //
 // commit_frame_kernel, the main path: one persistent cooperative launch
-// per frame. Each block walks whole MB rows left to right and waits,
+// per batch of B items of one shape (B frames of B streams, or the
+// slice bands of frames, each band committed as a frame of its own: its
+// row 0 reads no row above). The blocks walk the B * mbh global rows
+// r = item * mbh + row; each row waits only on row r - 1 of its own item,
+// a lower global row, so the walk cannot deadlock. B = 1 launches the
+// kernel's single-frame instance, which has no item arithmetic (the
+// batched one does it once per row). Each block walks whole MB rows left
+// to right and waits,
 // before MB x, on a progress word that the row above publishes after each
 // MB (release store / acquire load; the top edge is then read past L1),
 // so one slow I_4x4 MB delays only what depends on it. A waiter warp does
@@ -80,8 +87,18 @@ struct CommitArgs {
   int32_t* uac;  // [n][4][4][4]
   int32_t* vdc;
   int32_t* vac;
+  // item strides in elements, for items stacked along a leading axis
+  int64_t s_luma;    // y, iy, ry
+  int64_t s_chroma;  // u, v, iu, iv, ru, rv
+  int64_t s_map;     // i16_mode, chroma_mode, qp, qpc, i4_mask, is_intra
+  int64_t s_i4m;     // i4_modes
+  int64_t s_dc;
+  int64_t s_ac;
+  int64_t s_cdc;     // udc, vdc
+  int64_t s_cac;     // uac, vac
   int32_t mbw;
   int32_t mbh;
+  int32_t items;     // B; commit_diag_kernel takes item 0 only
 };
 
 namespace {
@@ -739,7 +756,53 @@ __device__ __forceinline__ int idct_lanes(int d, int i, int j) {
   return (inv1d_sel(r0, r1, r2, r3, j) + 32) >> 6;
 }
 
-// Start the copies of MB (x, row)'s inputs into buffer `buf`.
+// The arguments of item `item` of the batch: every plane, map and output
+// advanced by its item stride (the tables are shared; a null pointer
+// stays null). Without kBatched (a batch of one) they are `a` itself, so
+// the single-frame kernel reads its pointers from the parameter space.
+template <typename T>
+__device__ __forceinline__ T* item_ptr(T* p, int item, long long stride) {
+  return p == nullptr ? p : p + item * stride;
+}
+
+template <bool kBatched>
+__device__ __forceinline__ CommitArgs item_args(const CommitArgs& a,
+                                                int item) {
+  if (!kBatched) return a;
+  CommitArgs r = a;
+  r.y = item_ptr(a.y, item, a.s_luma);
+  r.iy = item_ptr(a.iy, item, a.s_luma);
+  r.ry = item_ptr(a.ry, item, a.s_luma);
+  r.u = item_ptr(a.u, item, a.s_chroma);
+  r.v = item_ptr(a.v, item, a.s_chroma);
+  r.iu = item_ptr(a.iu, item, a.s_chroma);
+  r.iv = item_ptr(a.iv, item, a.s_chroma);
+  r.ru = item_ptr(a.ru, item, a.s_chroma);
+  r.rv = item_ptr(a.rv, item, a.s_chroma);
+  r.i16_mode = item_ptr(a.i16_mode, item, a.s_map);
+  r.chroma_mode = item_ptr(a.chroma_mode, item, a.s_map);
+  r.qp = item_ptr(a.qp, item, a.s_map);
+  r.qpc = item_ptr(a.qpc, item, a.s_map);
+  r.i4_mask = item_ptr(a.i4_mask, item, a.s_map);
+  r.is_intra = item_ptr(a.is_intra, item, a.s_map);
+  r.i4_modes = item_ptr(a.i4_modes, item, a.s_i4m);
+  r.dc = item_ptr(a.dc, item, a.s_dc);
+  r.ac = item_ptr(a.ac, item, a.s_ac);
+  r.udc = item_ptr(a.udc, item, a.s_cdc);
+  r.vdc = item_ptr(a.vdc, item, a.s_cdc);
+  r.uac = item_ptr(a.uac, item, a.s_cac);
+  r.vac = item_ptr(a.vac, item, a.s_cac);
+  return r;
+}
+
+// The aligned 4-byte word that holds mask byte *p: an item's mask need
+// not start on a word, so the word is found from the address.
+__device__ __forceinline__ const void* mask_word(const uint8_t* p) {
+  return (const void*)((uintptr_t)p & ~(uintptr_t)3);
+}
+
+// Start the copies of MB (x, row)'s inputs into buffer `buf` (`a` is the
+// MB's item, as item_args gives it).
 __device__ __forceinline__ void prefetch_mb(FrameSmem& s, const CommitArgs& a,
                                             int buf, int row, int x, int t) {
   const int W = 16 * a.mbw, Wc = 8 * a.mbw;
@@ -771,13 +834,13 @@ __device__ __forceinline__ void prefetch_mb(FrameSmem& s, const CommitArgs& a,
                                  : k == 2 ? a.qp
                                           : a.qpc) + mb);
     else if (mask != nullptr)
-      cp_async4(&s.prm[buf][k], mask + (mb & ~3));
+      cp_async4(&s.prm[buf][k], mask_word(mask + mb));
   }
 }
 
-// byte mb & 3 of a prefetched mask word (little-endian)
-__device__ __forceinline__ bool mask_byte(int word, int mb) {
-  return ((word >> (8 * (mb & 3))) & 0xff) != 0;
+// mask byte *p from its prefetched word (little-endian)
+__device__ __forceinline__ bool mask_byte(int word, const uint8_t* p) {
+  return ((word >> (8 * ((uintptr_t)p & 3))) & 0xff) != 0;
 }
 
 // Luma of one intra I16x16 MB; thread t < 256 holds pixel / coefficient
@@ -1052,13 +1115,17 @@ __device__ __forceinline__ long long globaltimer() {
   return v;
 }
 
-// One block per co-resident slot walks MB rows blockIdx.x, + grid, ...
-// left to right. Before MB (x, y) it waits until row y - 1 has published
-// progress > x: the MB reads only its left (this block's previous MB, kept
-// on chip), top and top-left neighbours; the top-right MB is never read
-// (kKind treats it as unavailable, as the JAX scan does). prog[0..mbh-1]
-// is each row's count of finished MBs, prog[mbh] the error word; the
-// caller zeroes both.
+// One block per co-resident slot walks the global MB rows r = blockIdx.x,
+// + grid, ... < items * mbh (item r / mbh, row r % mbh), each left to
+// right; kBatched is false for a batch of one (r is the row; no item
+// arithmetic), and true otherwise (item and row found once per row).
+// Before MB (x, row) with row > 0 it waits until global row r - 1 (the
+// row above, in the same item) has published progress > x: the MB
+// reads only its left (this block's previous MB, kept on chip), top and
+// top-left neighbours; the top-right MB is never read (kKind treats it as
+// unavailable, as the JAX scan does). Row 0 of an item waits on nothing.
+// prog[0..items*mbh-1] is each global row's count of finished MBs,
+// prog[items*mbh] the error word; the caller zeroes both.
 //
 // Warps 0-11 compute. Warp 12 (waiter) polls the row above for the next
 // MB and loads its top edges while the compute warps work on this one;
@@ -1072,24 +1139,25 @@ __device__ __forceinline__ long long globaltimer() {
 // thread 0 (luma) waited at kBarStart and computed I16 / I_4x4 MBs, that
 // thread 256 (chroma) computed, that the waiter polled, the block's MBs
 // and I_4x4 MBs, and its whole run in cycles and in nanoseconds.
+template <bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
   __shared__ FrameSmem s;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int mbw = a.mbw, mbh = a.mbh;
-  int* err = prog + mbh;
+  const int mbw = a.mbw, mbh = a.mbh, rows = kBatched ? mbh * a.items : mbh;
+  int* err = prog + rows;
   long long* st = stats != nullptr ? stats + kStats * blockIdx.x : nullptr;
   const long long c_start = clock64(), ns_start = globaltimer();
   long long n_wait = 0, n_main = 0, n_i4 = 0, n_aux = 0;   // for stats
 
   if (warp == kReleaserWarp) {
     bar_arrive(kBarStart, kThreads);
-    for (int row = blockIdx.x; row < mbh; row += grid) {
+    for (int r = blockIdx.x; r < rows; r += grid) {
       for (int x = 0; x < mbw; ++x) {
         bar_named(kBarDone, kComputeThreads + 32);
         if (s.quit) return;
-        if (x + 1 < mbw || row + grid < mbh) bar_arrive(kBarStart, kThreads);
-        st_release(prog + row, x + 1);   // all lanes: one store, no split
+        if (x + 1 < mbw || r + grid < rows) bar_arrive(kBarStart, kThreads);
+        st_release(prog + r, x + 1);   // all lanes: one store, no split
       }
     }
     return;
@@ -1098,7 +1166,9 @@ commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
   if (warp == kWaiterWarp) {
     const int W = 16 * mbw, Wc = 8 * mbw;
     int seq = 0;
-    for (int row = blockIdx.x; row < mbh; row += grid) {
+    for (int r = blockIdx.x; r < rows; r += grid) {
+      const int row = kBatched ? r % mbh : r;
+      const CommitArgs ai = item_args<kBatched>(a, kBatched ? r / mbh : 0);
       int seen = 0;   // last progress read from row - 1
       for (int x = 0; x < mbw; ++x, ++seq) {
         const int buf = seq & 1;
@@ -1108,7 +1178,7 @@ commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
         // the barrier undivided
         if (row > 0 && seen <= x) {
           for (int it = 1;; ++it) {
-            seen = ld_acquire(prog + row - 1);
+            seen = ld_acquire(prog + r - 1);
             if (seen > x) break;
             if ((it & 255) == 0) {
               if (ld_relaxed(err) != 0) { ab = 1; break; }
@@ -1127,15 +1197,16 @@ commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
         const bool at = row > 0, al = x > 0;
         if (lane < 16) {
           s.top[buf][lane] =
-              at ? ldcg_u8(a.ry + (16 * row - 1) * W + 16 * x + lane) : 0;
+              at ? ldcg_u8(ai.ry + (16 * row - 1) * W + 16 * x + lane) : 0;
         } else {
           const int c = (lane - 16) >> 3, k = lane & 7;
           s.ctop[buf][c][k] =
-              at ? ldcg_u8((c ? a.rv : a.ru) + (8 * row - 1) * Wc + 8 * x + k)
+              at ? ldcg_u8((c ? ai.rv : ai.ru) + (8 * row - 1) * Wc + 8 * x +
+                           k)
                  : 0;
         }
         if (lane < 3) {
-          const uint8_t* plane = lane == 0 ? a.ry : lane == 1 ? a.ru : a.rv;
+          const uint8_t* plane = lane == 0 ? ai.ry : lane == 1 ? ai.ru : ai.rv;
           const int w = lane == 0 ? W : Wc, sz = lane == 0 ? 16 : 8;
           s.tl[buf][lane] =
               (at && al) ? ldcg_u8(plane + (sz * row - 1) * w + sz * x - 1)
@@ -1153,15 +1224,24 @@ commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
 
   for (int idx = t; idx < 208; idx += kComputeThreads) s.tab[idx] = a.tab[idx];
   if (t == 0) s.quit = 0;
-  if ((int)blockIdx.x < mbh) prefetch_mb(s, a, 0, blockIdx.x, 0, t);
+  const int r0 = blockIdx.x;
+  if (r0 < rows)
+    prefetch_mb(s, item_args<kBatched>(a, kBatched ? r0 / mbh : 0), 0,
+                kBatched ? r0 % mbh : r0, 0, t);
   cp_async_commit();
   int seq = 0;   // this block's MB count: buffer parity
-  for (int row = blockIdx.x; row < mbh; row += grid) {
+  for (int r = r0; r < rows; r += grid) {
+    const int row = kBatched ? r % mbh : r;
+    const CommitArgs ai = item_args<kBatched>(a, kBatched ? r / mbh : 0);
     for (int x = 0; x < mbw; ++x, ++seq) {
       const int buf = seq & 1, par = x & 1;
-      const int nrow = x + 1 < mbw ? row : row + grid;
-      if (nrow < mbh) prefetch_mb(s, a, buf ^ 1, nrow, x + 1 < mbw ? x + 1 : 0,
-                                  t);
+      if (x + 1 < mbw) {
+        prefetch_mb(s, ai, buf ^ 1, row, x + 1, t);
+      } else if (r + grid < rows) {   // this block's next row
+        const int nr = r + grid;
+        prefetch_mb(s, item_args<kBatched>(a, kBatched ? nr / mbh : 0),
+                    buf ^ 1, kBatched ? nr % mbh : nr, 0, t);
+      }
       cp_async_commit();
       cp_async_wait_prev();
       const long long c0 = clock64();
@@ -1181,18 +1261,19 @@ commit_frame_kernel(CommitArgs a, int* prog, int grid, long long* stats) {
       const int mb = row * mbw + x;
       const bool al = x > 0, at = row > 0;
       const int* prm = s.prm[buf];
-      const bool i4 = a.i4_mask != nullptr && mask_byte(prm[4], mb);
+      const bool i4 =
+          ai.i4_mask != nullptr && mask_byte(prm[4], ai.i4_mask + mb);
       const int luma_base = 16 * row * 16 * mbw + 16 * x;
       const int chroma_base = 8 * row * 8 * mbw + 8 * x;
-      if (a.is_intra != nullptr && !mask_byte(prm[5], mb)) {
-        inter_mb(s, a, t, mb, buf, par, luma_base, chroma_base);
+      if (ai.is_intra != nullptr && !mask_byte(prm[5], ai.is_intra + mb)) {
+        inter_mb(s, ai, t, mb, buf, par, luma_base, chroma_base);
       } else if (t < kLumaThreads) {
         if (i4)
-          luma_i4(s, a, t, mb, buf, par, luma_base, al, at, prm[2]);
+          luma_i4(s, ai, t, mb, buf, par, luma_base, al, at, prm[2]);
         else
-          luma_i16(s, a, t, mb, buf, par, luma_base, al, at, prm[2]);
+          luma_i16(s, ai, t, mb, buf, par, luma_base, al, at, prm[2]);
       } else {
-        chroma_i8(s, a, t - kLumaThreads, mb, buf, par, chroma_base, al, at,
+        chroma_i8(s, ai, t - kLumaThreads, mb, buf, par, chroma_base, al, at,
                   prm[3]);
       }
       const long long dc = clock64() - c1;
@@ -1238,33 +1319,40 @@ extern "C" int x264t_empty_launch(void* stream) {
   return (int)cudaGetLastError();
 }
 
-// How many blocks of commit_frame_kernel the card holds at once (blocks
-// per SM times SMs), or minus a CUDA error code.
+// How many blocks of commit_frame_kernel (either instance: the fewer)
+// the card holds at once (blocks per SM times SMs), or minus a CUDA error
+// code.
 extern "C" int x264t_commit_capacity() {
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0, one = 0, batched = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, commit_frame_kernel, kThreads, 0);
-  return e == cudaSuccess ? per_sm * sms : -(int)e;
+        &one, commit_frame_kernel<false>, kThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &batched, commit_frame_kernel<true>, kThreads, 0);
+  return e == cudaSuccess ? (one < batched ? one : batched) * sms : -(int)e;
 }
 
-// Launch the commit of a whole frame on `stream`: `grid` persistent blocks
-// (1 <= grid <= min(mbh, capacity)), all co-resident by a cooperative
-// launch. `prog` holds mbh + 1 zeroed int32: each row's progress, then the
-// error word, which the kernel sets when a wavefront wait runs past its
-// bound. `stats`: null, or grid x kStats zeroed int64 (see the kernel).
-// Returns the launch's CUDA error (0 on success).
+// Launch the commit of a batch of a->items frames (or bands) on `stream`:
+// `grid` persistent blocks (1 <= grid <= min(items * mbh, capacity)), all
+// co-resident by a cooperative launch. `prog` holds items * mbh + 1 zeroed
+// int32: each global row's progress, then the error word, which the kernel
+// sets when a wavefront wait runs past its bound. `stats`: null, or grid x
+// kStats zeroed int64 (see the kernel). Returns the launch's CUDA error (0
+// on success).
 extern "C" int x264t_commit_frame(const CommitArgs* a, int* prog, int grid,
                                   long long* stats, void* stream) {
-  if (grid < 1 || grid > a->mbh) return (int)cudaErrorInvalidValue;
+  if (a->items < 1 || grid < 1 || grid > a->mbh * a->items)
+    return (int)cudaErrorInvalidValue;
   CommitArgs args = *a;
   void* params[] = {&args, &prog, &grid, &stats};
+  const void* kernel = a->items == 1 ? (const void*)commit_frame_kernel<false>
+                                     : (const void*)commit_frame_kernel<true>;
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)commit_frame_kernel, dim3(grid), dim3(kThreads), params, 0,
-      (cudaStream_t)stream);
+      kernel, dim3(grid), dim3(kThreads), params, 0, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -1030,17 +1030,28 @@ def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4,
     inter planes and zero levels), so the port commits every P frame of
     intra_in_p and never asks the device whether any MB is intra. Without
     intra_in_p nothing is committed."""
+    committed = None
+    if intra_in_p:
+        args, kw = mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw,
+                                       mbh=mbh, i4=i4)
+        committed = commit(*args, **kw)
+    return p_merge_levels(xm, committed, mbw=mbw, mbh=mbh,
+                          two_refs=two_refs, i4=i4)
+
+
+def p_merge_levels(xm, committed, *, mbw, mbh, two_refs, i4):
+    """What follows the mixed commit in p_merge_core: the level merge,
+    cbp / skip and the MB histogram. committed: the commit's (coeffs,
+    recon planes), or None without intra_in_p."""
     n = mbw * mbh
-    dev = y.device
+    dev = xm["lv"].device
     is_intra = xm["is_intra"]
     is_intra_f = is_intra.reshape(-1)
     i4_mask = xm["i4_mask"]
     lv, udc, vdc, uac, vac = (xm["lv"], xm["udc"], xm["vdc"], xm["uac"],
                               xm["vac"])
-    if intra_in_p:
-        args, kw = mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw,
-                                       mbh=mbh, i4=i4)
-        icoeffs, (recon_y, recon_u, recon_v) = commit(*args, **kw)
+    if committed is not None:
+        icoeffs, (recon_y, recon_u, recon_v) = committed
         im3 = is_intra_f[:, None, None]
         im4 = is_intra_f[:, None, None, None]
         lv = torch.where(im4, icoeffs["ac"], lv)
@@ -1056,7 +1067,7 @@ def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4,
 
     # ---- cbp / skip on the merged levels ----
     nnz_l = (lv.reshape(n, 16, 16) != 0).sum(2, dtype=_i32)
-    cbp_luma = torch.zeros((n,), dtype=_i32, device=y.device)
+    cbp_luma = torch.zeros((n,), dtype=_i32, device=dev)
     for qd in range(4):
         qy, qx = qd // 2, qd % 2
         qnnz = sum(nnz_l[:, (2 * qy + by) * 4 + (2 * qx + bx)]
@@ -1201,7 +1212,34 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
     partitions only); intra_in_p False drops the intra candidate and the
     commit. pir_cap / pir_band (periodic intra refresh): the per-MB cap on
     full-pel dx and the forced-intra column band. nr_offset [4, 4] turns
-    noise reduction on. Returns (words, total_bits, recon planes, stats)."""
+    noise reduction on. Returns (words, total_bits, recon planes, stats).
+
+    The commit splits it in two: `p_analyse` before, `p_finish` after, so
+    that one batched commit can serve the P frames of several streams
+    (encoder/farm.py)."""
+    xm = p_analyse(
+        y, u, v, refs, qp_mb, qpc_mb, lam, wp, mbw=mbw, mbh=mbh,
+        me_range=me_range, decimate=decimate, i4=i4, two_refs=two_refs,
+        p8x8=p8x8, trl_tabs=trl_tabs, me_seeded=me_seeded,
+        partitions=partitions, rd=rd, intra_in_p=intra_in_p, pir_cap=pir_cap,
+        pir_band=pir_band, nr_offset=nr_offset)
+    cm = p_merge_core(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw, mbh=mbh,
+                      two_refs=two_refs, i4=i4, intra_in_p=intra_in_p)
+    del xm
+    return p_finish(cm, slice_qp, mbw=mbw, mbh=mbh, cap_words=cap_words,
+                    deblock=deblock, a_off=a_off, b_off=b_off, cqpo=cqpo,
+                    i4=i4, two_refs=two_refs, ref1_valid=len(refs) == 2,
+                    entropy=entropy, partitions=partitions)
+
+
+def p_analyse(y, u, v, refs, qp_mb, qpc_mb, lam, wp, *, mbw, mbh, me_range,
+              decimate, i4, two_refs, p8x8=True, trl_tabs=None,
+              me_seeded=True, partitions=True, rd=True, intra_in_p=True,
+              pir_cap=None, pir_band=None, nr_offset=None):
+    """A P frame up to its commit (encode_pframe's arguments): motion,
+    reference choice, the intra candidate, the RD tier and the transform.
+    Returns p_xfrm_core's dict, from which `mixed_commit_inputs` takes the
+    commit's inputs."""
     n = mbw * mbh
     ref1_valid = len(refs) == 2
     pir = pir_band is not None
@@ -1242,8 +1280,8 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
             y, cands[0], cands[1], mvp_rd, qp_mb, ref1_valid, i16_mode,
             mbw=mbw, mbh=mbh, two_refs=two_refs, intra_rd=intra_in_p)
     del cands
-    # ---- transform, then the mixed commit and cbp / skip ----
-    xm = p_xfrm_core(
+    # ---- transform (the mixed commit and cbp / skip follow) ----
+    return p_xfrm_core(
         y, u, v, refs[0]["cuv_pad"],
         refs[1]["cuv_pad"] if ref1_valid else None, inter_cost, pred_y, mvq,
         part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
@@ -1251,9 +1289,14 @@ def encode_pframe(y, u, v, refs, qp_mb, qpc_mb, slice_qp, lam, wp, *, mbw,
         nr_offset, mbw=mbw, mbh=mbh, two_refs=two_refs, decimate=decimate,
         p8x8=p8x8, partitions=partitions, intra_in_p=intra_in_p, pir=pir,
         nr=nr_offset is not None)
-    cm = p_merge_core(y, u, v, qp_mb, qpc_mb, xm, mbw=mbw, mbh=mbh,
-                      two_refs=two_refs, i4=i4, intra_in_p=intra_in_p)
-    del xm
+
+
+def p_finish(cm, slice_qp, *, mbw, mbh, cap_words, deblock, a_off, b_off,
+             cqpo, i4, two_refs, ref1_valid, entropy=True, partitions=True):
+    """A P frame after its commit (encode_pframe's arguments; cm:
+    p_merge_core's or p_merge_levels' dict): entropy, then the deblock.
+    Returns (words, total_bits, recon planes, stats)."""
+    n = mbw * mbh
     # ---- entropy ----
     if entropy:
         words, total_bits, eff_qp = encode_pframe_entropy_dev(

@@ -173,10 +173,10 @@ def decide_modes_i4(y, lam=None):
 
 
 # ---------------------------------------------------------------- pipeline
-def _decide_commit(y, u, v, qp_mb, qpc_mb, *, mbw, mbh, i4):
-    """Mode decision at the per-MB lambda, then the wavefront commit.
-    Returns (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
-    recon); i4_mask / i4_modes are None without i4."""
+def decide_iframe(y, u, v, qp_mb, *, i4):
+    """Mode decision at the per-MB lambda. Returns (i16_mode, chroma_mode,
+    satd_cost, i4_mask, i4_modes); i4_mask / i4_modes are None without
+    i4."""
     lam = mb_lambda(qp_mb)
     i16_mode, chroma_mode, satd_cost, i16_cost = decide_modes_full(
         y, u, v, lam=lam)
@@ -184,9 +184,26 @@ def _decide_commit(y, u, v, qp_mb, qpc_mb, *, mbw, mbh, i4):
     if i4:
         i4_modes, i4_cost = decide_modes_i4(y, lam=lam)
         i4_mask = i4_cost < i16_cost
-    coeffs, recon = commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb,
-                           mbw, mbh, i4_mask=i4_mask, i4_modes=i4_modes)
-    return i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs, recon
+    return i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes
+
+
+def iframe_commit_inputs(y, u, v, qp_mb, qpc_mb, modes, *, mbw, mbh):
+    """(args, kwargs) of an I frame's commit (ops/commit.commit) from
+    `decide_iframe`'s modes."""
+    i16_mode, chroma_mode, _, i4_mask, i4_modes = modes
+    return ((y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh),
+            dict(i4_mask=i4_mask, i4_modes=i4_modes))
+
+
+def _decide_commit(y, u, v, qp_mb, qpc_mb, *, mbw, mbh, i4):
+    """Mode decision at the per-MB lambda, then the wavefront commit.
+    Returns (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
+    recon); i4_mask / i4_modes are None without i4."""
+    modes = decide_iframe(y, u, v, qp_mb, i4=i4)
+    args, kw = iframe_commit_inputs(y, u, v, qp_mb, qpc_mb, modes, mbw=mbw,
+                                    mbh=mbh)
+    coeffs, recon = commit(*args, **kw)
+    return (*modes, coeffs, recon)
 
 
 def _deblock_intra(recon, eff_qp, *, mbw, mbh, a_off, b_off, cqpo):
@@ -203,8 +220,19 @@ def encode_iframe(y, u, v, qp_mb, qpc_mb, slice_qp, *, mbw, mbh, cap_words,
     -> deblock. i4 adds the per-MB I_4x4 candidate (I16x16 vs I_4x4 by SATD
     plus mode-bit costs at the per-MB lambda).
     Returns (words, total_bits, recon planes, satd_cost)."""
-    (i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes, coeffs,
-     recon) = _decide_commit(y, u, v, qp_mb, qpc_mb, mbw=mbw, mbh=mbh, i4=i4)
+    (*modes, coeffs, recon) = _decide_commit(y, u, v, qp_mb, qpc_mb,
+                                             mbw=mbw, mbh=mbh, i4=i4)
+    return iframe_cavlc_tail(modes, coeffs, recon, qp_mb, slice_qp, mbw=mbw,
+                             mbh=mbh, cap_words=cap_words, deblock=deblock,
+                             a_off=a_off, b_off=b_off, cqpo=cqpo)
+
+
+def iframe_cavlc_tail(modes, coeffs, recon, qp_mb, slice_qp, *, mbw, mbh,
+                      cap_words, deblock=False, a_off=0, b_off=0, cqpo=0):
+    """What follows an I frame's commit on the CAVLC path: the device
+    CAVLC, then the deblock. modes: `decide_iframe`'s; coeffs, recon: the
+    commit's. Returns (words, total_bits, recon planes, satd_cost)."""
+    i16_mode, chroma_mode, satd_cost, i4_mask, i4_modes = modes
     words, total_bits, eff_qp = encode_i16x16_frame_dev(
         i16_mode.reshape(-1), chroma_mode.reshape(-1), qp_mb.reshape(-1),
         slice_qp, coeffs["dc"], coeffs["ac"],

@@ -11,6 +11,12 @@ Two versions of one function, with the outputs of x264_tpu's
   persistent launch per frame whose blocks walk MB rows and wait on the
   row above (`commit_cuda`).
 
+Both take one frame (planes [H, W], maps [mbh, mbw]) or a batch of B
+items of one shape along a leading axis (planes [B, H, W], maps
+[B, mbh, mbw]): the frames of B streams, or the slice bands of frames,
+each committed as a frame of its own. A batch is one kernel launch
+(`commit_ref` loops over its items); `commit_batch` stacks per-item calls.
+
 `commit(...)` dispatches on the input tensors' device: CPU tensors go to
 `commit_ref`, CUDA tensors to the kernel. `commit.launches` counts kernel
 launches. `commit_cuda_diag` keeps the first port's one-launch-per-diagonal
@@ -204,10 +210,31 @@ def _put(rec, xs, ys, s, vals):
         (xs * s + 1)[:, None, None] + ar] = vals
 
 
+def _items(fn, y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
+           is_intra, inter_planes, i4_mask, i4_modes, **kw):
+    """fn over the items of a batch (leading axis), outputs stacked."""
+    outs, recons = [], []
+    for b in range(y.shape[0]):
+        def at(t):
+            return None if t is None else t[b]
+        out, recon = fn(
+            y[b], u[b], v[b], i16_mode[b], chroma_mode[b], qp_mb[b],
+            qpc_mb[b], mbw, mbh, is_intra=at(is_intra),
+            inter_planes=(None if inter_planes is None
+                          else tuple(p[b] for p in inter_planes)),
+            i4_mask=at(i4_mask), i4_modes=at(i4_modes), **kw)
+        outs.append(out)
+        recons.append(recon)
+    return ({k: torch.stack([o[k] for o in outs]) for k in outs[0]},
+            tuple(torch.stack(r) for r in zip(*recons)))
+
+
 def commit_ref(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
                is_intra=None, inter_planes=None, i4_mask=None,
                i4_modes=None, order=None):
     """Plain PyTorch twin of intra._commit_scan (bit-identical).
+    With a leading item axis on every input (a batch), a loop over the
+    items, outputs stacked along the same axis.
 
     y [H, W], u/v [H/2, W/2] uint8; i16_mode, chroma_mode, qp_mb, qpc_mb
     [mbh, mbw] int; optional i4_mask [mbh, mbw] + i4_modes [mbh, mbw, 16]
@@ -217,6 +244,10 @@ def commit_ref(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
     groups (xs, ys) in commit order; each MB's left, top and top-left
     neighbours must lie in earlier groups. Default: the anti-diagonals.
     Returns (coeff dict of raster [N, ...] int32 tensors, recon planes)."""
+    if y.dim() == 3:
+        return _items(commit_ref, y, u, v, i16_mode, chroma_mode, qp_mb,
+                      qpc_mb, mbw, mbh, is_intra, inter_planes, i4_mask,
+                      i4_modes, order=order)
     dev = y.device
     H, W = y.shape
     n = mbw * mbh
@@ -335,7 +366,11 @@ class _CommitArgs(ctypes.Structure):
         "y", "u", "v", "i16_mode", "chroma_mode", "qp", "qpc", "i4_mask",
         "i4_modes", "is_intra", "iy", "iu", "iv", "tab", "ry", "ru", "rv",
         "dc", "ac", "udc", "uac", "vdc", "vac")] + [
-        ("mbw", ctypes.c_int32), ("mbh", ctypes.c_int32)]
+        (name, ctypes.c_int64) for name in (
+            "s_luma", "s_chroma", "s_map", "s_i4m", "s_dc", "s_ac", "s_cdc",
+            "s_cac")] + [
+        ("mbw", ctypes.c_int32), ("mbh", ctypes.c_int32),
+        ("items", ctypes.c_int32)]
 
 
 def _library():
@@ -401,32 +436,35 @@ def _check(t, name, shape, dtype, device):
 def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
                  is_intra=None, inter_planes=None, i4_mask=None,
                  i4_modes=None):
-    """Check the inputs, allocate the outputs and fill the CommitArgs
-    struct. Returns (args, out, recon, tab); keep `tab` alive until the
-    launches that read it are done."""
+    """Check the inputs of a batch (leading item axis B on every input),
+    allocate the outputs and fill the CommitArgs struct. Returns (args,
+    out, recon, tab); keep `tab` alive until the launches that read it are
+    done."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"commit_cuda takes CUDA tensors, got {dev}")
-    H, W = 16 * mbh, 16 * mbw
+    if y.dim() != 3 or y.shape[0] < 1:
+        raise ValueError(f"y: expected [B, H, W], got {tuple(y.shape)}")
+    B, H, W = y.shape[0], 16 * mbh, 16 * mbw
     u8, i32 = torch.uint8, torch.int32
-    _check(y, "y", (H, W), u8, dev)
-    _check(u, "u", (H // 2, W // 2), u8, dev)
-    _check(v, "v", (H // 2, W // 2), u8, dev)
+    _check(y, "y", (B, H, W), u8, dev)
+    _check(u, "u", (B, H // 2, W // 2), u8, dev)
+    _check(v, "v", (B, H // 2, W // 2), u8, dev)
     for name, t in (("i16_mode", i16_mode), ("chroma_mode", chroma_mode),
                     ("qp_mb", qp_mb), ("qpc_mb", qpc_mb)):
-        _check(t, name, (mbh, mbw), i32, dev)
+        _check(t, name, (B, mbh, mbw), i32, dev)
     if (i4_mask is None) != (i4_modes is None):
         raise ValueError("i4_mask and i4_modes go together")
     if (is_intra is None) != (inter_planes is None):
         raise ValueError("is_intra and inter_planes go together")
     if i4_mask is not None:
-        _check(i4_mask, "i4_mask", (mbh, mbw), torch.bool, dev)
-        _check(i4_modes, "i4_modes", (mbh, mbw, 16), i32, dev)
+        _check(i4_mask, "i4_mask", (B, mbh, mbw), torch.bool, dev)
+        _check(i4_modes, "i4_modes", (B, mbh, mbw, 16), i32, dev)
     if is_intra is not None:
-        _check(is_intra, "is_intra", (mbh, mbw), torch.bool, dev)
-        _check(inter_planes[0], "inter y", (H, W), u8, dev)
-        _check(inter_planes[1], "inter u", (H // 2, W // 2), u8, dev)
-        _check(inter_planes[2], "inter v", (H // 2, W // 2), u8, dev)
+        _check(is_intra, "is_intra", (B, mbh, mbw), torch.bool, dev)
+        _check(inter_planes[0], "inter y", (B, H, W), u8, dev)
+        _check(inter_planes[1], "inter u", (B, H // 2, W // 2), u8, dev)
+        _check(inter_planes[2], "inter v", (B, H // 2, W // 2), u8, dev)
     # the frame kernel copies tiles of these with cp.async (of a mask, the
     # aligned 4-byte word holding an MB's byte: at most 3 bytes past the
     # mask's end, inside its allocation, which PyTorch rounds up to 512)
@@ -435,12 +473,12 @@ def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
             raise ValueError("planes, masks and i4_modes must be 16-byte "
                              "aligned")
     n = mbw * mbh
-    out = {"dc": torch.empty((n, 4, 4), dtype=i32, device=dev),
-           "ac": torch.empty((n, 16, 4, 4), dtype=i32, device=dev),
-           "udc": torch.empty((n, 2, 2), dtype=i32, device=dev),
-           "uac": torch.empty((n, 4, 4, 4), dtype=i32, device=dev),
-           "vdc": torch.empty((n, 2, 2), dtype=i32, device=dev),
-           "vac": torch.empty((n, 4, 4, 4), dtype=i32, device=dev)}
+    out = {"dc": torch.empty((B, n, 4, 4), dtype=i32, device=dev),
+           "ac": torch.empty((B, n, 16, 4, 4), dtype=i32, device=dev),
+           "udc": torch.empty((B, n, 2, 2), dtype=i32, device=dev),
+           "uac": torch.empty((B, n, 4, 4, 4), dtype=i32, device=dev),
+           "vdc": torch.empty((B, n, 2, 2), dtype=i32, device=dev),
+           "vac": torch.empty((B, n, 4, 4, 4), dtype=i32, device=dev)}
     recon = tuple(torch.empty_like(p) for p in (y, u, v))
     tab = _quant_tables(dev)
 
@@ -454,8 +492,27 @@ def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         ptr(inter[0]), ptr(inter[1]), ptr(inter[2]), ptr(tab),
         ptr(recon[0]), ptr(recon[1]), ptr(recon[2]), ptr(out["dc"]),
         ptr(out["ac"]), ptr(out["udc"]), ptr(out["uac"]), ptr(out["vdc"]),
-        ptr(out["vac"]), mbw, mbh)
+        ptr(out["vac"]), y.stride(0), u.stride(0), qp_mb.stride(0),
+        16 * qp_mb.stride(0), out["dc"].stride(0), out["ac"].stride(0),
+        out["udc"].stride(0), out["uac"].stride(0), mbw, mbh, B)
     return args, out, recon, tab
+
+
+def _as_batch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, is_intra,
+              inter_planes, i4_mask, i4_modes):
+    """One frame's inputs as a batch of one (views, no copies)."""
+    def one(t):
+        return None if t is None else t.unsqueeze(0)
+    return ([one(t) for t in (y, u, v, i16_mode, chroma_mode, qp_mb,
+                              qpc_mb)],
+            dict(is_intra=one(is_intra), i4_mask=one(i4_mask),
+                 i4_modes=one(i4_modes),
+                 inter_planes=(None if inter_planes is None
+                               else tuple(one(p) for p in inter_planes))))
+
+
+def _first_item(out, recon):
+    return {k: t[0] for k, t in out.items()}, tuple(r[0] for r in recon)
 
 
 # per block, as commit_frame_kernel writes them (csrc/commit.cu kStats)
@@ -468,24 +525,34 @@ def commit_launch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
                   is_intra=None, inter_planes=None, i4_mask=None,
                   i4_modes=None, grid=None, stats=None):
     """One launch of the frame kernel on the current stream, without
-    waiting for it. Returns (out, recon, prog): `prog` holds each row's
-    finished-MB count and, last, the error word; `check_progress(prog,
-    mbw)` reads it once the launch is done. `grid` caps the persistent
-    blocks (default min(mbh, what the card holds at once)). `stats`, zeros
-    of shape (grid, len(STATS_FIELDS)) int64 on the card, receives each
-    block's counters (STATS_FIELDS)."""
+    waiting for it, for one frame or a batch (leading item axis on every
+    input; the outputs then carry it too). Returns (out, recon, prog):
+    `prog` holds each global row's finished-MB count (B * mbh of them)
+    and, last, the error word; `check_progress(prog, mbw)` reads it once
+    the launch is done. `grid` caps the persistent blocks (default
+    min(B * mbh, what the card holds at once)). `stats`, zeros of shape
+    (grid, len(STATS_FIELDS)) int64 on the card, receives each block's
+    counters (STATS_FIELDS)."""
+    single = y.dim() == 2
+    if single:
+        (y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb), kw = _as_batch(
+            y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, is_intra,
+            inter_planes, i4_mask, i4_modes)
+        is_intra, inter_planes = kw["is_intra"], kw["inter_planes"]
+        i4_mask, i4_modes = kw["i4_mask"], kw["i4_modes"]
     args, out, recon, _tab = _kernel_args(
         y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
         i4_modes=i4_modes)
-    cap = min(mbh, grid_capacity(y.device))
+    rows = y.shape[0] * mbh
+    cap = min(rows, grid_capacity(y.device))
     grid = cap if grid is None else grid
     if not 1 <= grid <= cap:
         raise ValueError(f"grid {grid} outside 1..{cap}")
     if stats is not None:
         _check(stats, "stats", (grid, len(STATS_FIELDS)), torch.int64,
                y.device)
-    prog = torch.zeros(mbh + 1, dtype=torch.int32, device=y.device)
+    prog = torch.zeros(rows + 1, dtype=torch.int32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     rc = _library().x264t_commit_frame(
         ctypes.byref(args), prog.data_ptr(), grid,
@@ -493,12 +560,14 @@ def commit_launch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
     if rc != 0:
         raise RuntimeError(f"commit kernel launch failed: CUDA error {rc}")
     commit.launches += 1
+    if single:
+        out, recon = _first_item(out, recon)
     return out, recon, prog
 
 
 def check_progress(prog, mbw):
-    """Raise unless the launch that filled `prog` finished every MB row
-    (synchronises with it)."""
+    """Raise unless the launch that filled `prog` finished every MB row of
+    every item (synchronises with it)."""
     p = prog.cpu()
     if int(p[-1]) != 0:
         raise RuntimeError("commit kernel: a wavefront wait ran past its "
@@ -511,9 +580,10 @@ def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
                 is_intra=None, inter_planes=None, i4_mask=None,
                 i4_modes=None, grid=None):
     """The CUDA frame kernel (csrc/commit.cu commit_frame_kernel): one
-    launch per frame on the current stream, then a check that it finished.
-    Inputs: uint8 planes, int32 maps, bool masks, all contiguous and
-    16-byte aligned on one CUDA device; outputs as commit_ref's."""
+    launch per frame, or per batch of frames or bands, on the current
+    stream, then one check that it finished. Inputs: uint8 planes, int32
+    maps, bool masks, all contiguous and 16-byte aligned on one CUDA
+    device; outputs as commit_ref's."""
     out, recon, prog = commit_launch(
         y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
@@ -527,11 +597,12 @@ def commit_cuda_diag(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw,
                      i4_modes=None):
     """The first port's kernel (commit_diag_kernel), one launch per
     anti-diagonal. Off the main path: kept so that a run on the card can
-    time it beside commit_cuda."""
+    time it beside commit_cuda. One frame only."""
+    (y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb), kw = _as_batch(
+        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, is_intra,
+        inter_planes, i4_mask, i4_modes)
     args, out, recon, _tab = _kernel_args(
-        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
-        is_intra=is_intra, inter_planes=inter_planes, i4_mask=i4_mask,
-        i4_modes=i4_modes)
+        y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh, **kw)
     lib = _library()
     stream = torch.cuda.current_stream(y.device).cuda_stream
     for d in range(n_diags(mbw, mbh)):
@@ -540,7 +611,7 @@ def commit_cuda_diag(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw,
             raise RuntimeError(f"commit kernel launch failed on diagonal {d}:"
                                f" CUDA error {rc}")
         commit_cuda_diag.launches += 1
-    return out, recon
+    return _first_item(out, recon)
 
 
 commit_cuda_diag.launches = 0
@@ -548,8 +619,9 @@ commit_cuda_diag.launches = 0
 
 def commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
            is_intra=None, inter_planes=None, i4_mask=None, i4_modes=None):
-    """Wavefront commit with the outputs of x264_tpu's commit_dispatch.
-    CUDA tensors go to the frame kernel, CPU tensors to commit_ref.
+    """Wavefront commit with the outputs of x264_tpu's commit_dispatch, of
+    one frame or of a batch (leading item axis). CUDA tensors go to the
+    frame kernel (one launch either way), CPU tensors to commit_ref.
     `commit.launches` counts the frame kernel's launches."""
     fn = commit_cuda if y.is_cuda else commit_ref
     return fn(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
@@ -558,3 +630,37 @@ def commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
 
 
 commit.launches = 0
+
+
+
+def stack_calls(calls):
+    """Per-item calls [(args, kwargs), ...] of one shape and variant, as
+    `commit` takes them (args = (y, u, v, i16_mode, chroma_mode, qp_mb,
+    qpc_mb, mbw, mbh)) -> the (args, kwargs) of their batch: every input
+    stacked along a new leading item axis."""
+    args0, kw0 = calls[0]
+    mbw, mbh = args0[7], args0[8]
+    if any(tuple(a[7:9]) != (mbw, mbh) or kw.keys() != kw0.keys()
+           for a, kw in calls):
+        raise ValueError("stack_calls: items differ in shape or variant")
+    stacked = [torch.stack([a[i] for a, _ in calls]) for i in range(7)]
+    kw = {}
+    for key in kw0:
+        if kw0[key] is None:
+            kw[key] = None
+        elif key == "inter_planes":
+            kw[key] = tuple(torch.stack([k[key][c] for _, k in calls])
+                            for c in range(3))
+        else:
+            kw[key] = torch.stack([k[key] for _, k in calls])
+    return (*stacked, mbw, mbh), kw
+
+
+def commit_batch(calls):
+    """One commit for a list of per-item calls of one shape and variant
+    (see stack_calls): one `commit` of their batch (one kernel launch on a
+    card), and the per-item [(coeffs, recon), ...] back."""
+    args, kw = stack_calls(calls)
+    out, recon = commit(*args, **kw)
+    return [({k: t[b] for k, t in out.items()}, tuple(r[b] for r in recon))
+            for b in range(len(calls))]
