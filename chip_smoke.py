@@ -9,9 +9,10 @@ nothing else running but the default path's decoder, at the lowest
 priority on one core), then 3 (it times nothing) and the report (any
 failure exits non-zero, stops every process the run started and prints
 no result line):
-  1. build the hand-written CUDA kernels (csrc/commit.cu, nvcc, sm_90a)
-     and print what ptxas reports; build and load the host CABAC writer
-     (csrc/cabac.cpp, g++) beside it, both compilers started together;
+  1. build the hand-written CUDA kernels (csrc/commit.cu and
+     csrc/deblock.cu, one nvcc each, sm_90a, linked into one library) and
+     print what ptxas reports; build and load the host CABAC writer
+     (csrc/cabac.cpp, g++) beside them, all compilers started together;
   2. hold the frame kernel (one persistent launch per frame) against its
      plain PyTorch version (commit_ref) on the card, bit-exact (tolerance
      0: every output is an integer), in the I16, I16+I4, mixed + I_4x4
@@ -35,7 +36,18 @@ no result line):
      item by item; B = 2 real 1080p frames in the four variants against
      single launches; a 1080p frame as 4 bands of 17 MB rows (the mesh's
      I step) against commit_ref, timed; S = 1, 2, 4 1080p frames in one
-     launch against S single launches, timed in turns;
+     launch against S single launches, timed in turns; then the deblock
+     kernel (csrc/deblock.cu, one persistent launch per frame) against its
+     plain version (deblock_ref) on the card, bit-exact, its inputs left
+     as they were: intra and random strengths with per-MB QPs over 0-51
+     and a_off / b_off / chroma_qp_offset at -12, 0 and +12 at 64x48,
+     48x32, 16x16, 16x64 and 128x16 (one block walking every row too); at
+     1920x1088 the I frame with intra strengths (all blocks, and 7 blocks
+     that each walk ~10 MB rows), random strengths, the real P frame 1 at
+     preset medium (compute_strengths, two references) and the default
+     path's first B frame (compute_strengths_b), both as the encoder
+     called the deblock; the P and the I frame timed beside deblock_ref
+     and their bounds;
   3. in a pool of worker processes (each with its own CUDA context),
      beside the decoders that the cases ask for: encode a 3-frame 64x48
      all-intra clip and a 5-frame 64x48 IPPP clip
@@ -53,16 +65,21 @@ no result line):
      (x264_tpu_torch.cli.main, --device cuda / cpu) at 64x48 to .264,
      .mkv and .mp4 at its defaults, with ABR + VBV + nal-hrd cbr + filler,
      with --aud, and two passes (stats files equal too); the farm (S = 2,
-     one commit launch per frame position) at 64x48 and 640x360, refdec
-     decoding the 640x360 streams to the farm's reconstructions; the mesh
-     (2 streams x 4 bands, I then P) at 64x128, one launch for the I
-     step and none for the P step, refdec decoding each intra band coded
+     one commit and two deblock launches per frame position) at 64x48 and
+     640x360, refdec decoding the 640x360 streams to the farm's
+     reconstructions; the mesh (2 streams x 4 bands, I then P) at 64x128,
+     one commit launch for the I step and none for the P step, no deblock
+     launch for the I step and 8 (one per band) for the P step, refdec
+     decoding each intra band coded
      as a frame of its own (refdec decodes no multi-slice stream); and the
      CPU encodes of the timed paths' first frames (phases 4, 7, 8, 9, 10);
+     and the deblock kernel on a frame whose MB rows outnumber the blocks
+     the card holds at once (2 MBs wide) against deblock_ref on the CPU;
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
-     through Encoder.encode on CUDA, with the kernel's launch count reset
-     just before and read just after (one launch per encoded frame);
+     through Encoder.encode on CUDA, with the kernels' launch counts reset
+     just before and read just after (one commit launch per encoded
+     frame, a deblock launch for every frame at least);
      frame 0 must match a CPU encode of the same frame byte for byte
      (phase 3);
   5. the P main path (what bench.py times): 4 frames of the same clip,
@@ -82,9 +99,11 @@ no result line):
      at the flush (the MB-tree window is 24 frames deep), through
      Encoder.encode on CUDA. The adaptive B-run decision is asked first
      (the lookahead alone): if it would code no B frame on this clip, the
-     phase runs with bframe_adaptive 0 and says so. The launch count is
+     phase runs with bframe_adaptive 0 and says so. The launch counts are
      reset just before and read just after: one commit launch per I or P
-     frame, none for a B frame (it has no intra MB). At least one frame
+     frame, none for a B frame (it has no intra MB), and a deblock launch
+     for every frame at least; the first B frame's deblock inputs are kept
+     for phase 2 (one copy on the card). At least one frame
      must be B. Frame 0 must match a CPU encode of frame 0 (the CPU
      encoder's lookahead sees all 5 frames) byte for byte (phase 3);
      tools/refdec.py decodes the whole stream to the reconstructions,
@@ -97,18 +116,21 @@ no result line):
      variants without I_4x4), and 16 frames of it with intra refresh at
      keyint 8 (the sweep restarts at frame 8 and crosses the frame by
      frame 15: the mixed variant with a forced-intra column band), each
-     through Encoder.encode with the launch count reset just before and
-     read just after (one per frame), frames 0-1 against a CPU encode of
+     through Encoder.encode with the launch counts reset just before and
+     read just after (one commit per frame, no deblock: ultrafast does not
+     deblock), frames 0-1 against a CPU encode of
      the same frames (phase 3), the band columns per frame, and a P-frame
      stage breakdown while the clip is encoded again;
  10. the farm, the mesh and the CLI at 1080p: the farm (S = 2: the
      bench's clip and the same clip mirrored, I P P at the farm's scope:
      preset medium IPPP, CQP 26, CAVLC, weighted_pred 0) with its stages
-     timed, the launch count reset just before and read just after (one
-     per frame position); the mesh (1 stream x 4 bands of 17 MB rows, I
-     then P; one launch, then none); the CLI on a 6-frame y4m written by
-     the port's Y4MWriter (preset ultrafast, ABR with VBV and nal-hrd cbr,
-     .mp4; one launch per frame), run again with its P stages timed, and
+     timed, the launch counts reset just before and read just after (one
+     commit and S = 2 deblocks per frame position); the mesh (1 stream x
+     4 bands of 17 MB rows, I then P; one commit launch, then none; no
+     deblock, then one per band); the CLI on a 6-frame y4m written by the
+     port's Y4MWriter (preset ultrafast, ABR with VBV and nal-hrd cbr,
+     .mp4; one commit launch per frame, no deblock), run again with its P
+     stages timed, and
      its first two frames against a CPU run (phase 3); fps, launches,
      stage times, bytes and PSNR of each;
   6. print fps, the kernels' and the plain version's time per frame,
@@ -833,6 +855,180 @@ def batched_phase(torch, C, dev, rng, clip, enc_big, qp_i, cap):
             "band_bound_by": bound_by, "timing": timing}
 
 
+# ------------------------------------------- the deblock kernel (phase 2)
+# Integer ops of one filtered line (the three edge tests, the normal
+# filter's delta, clips and p1 / q1 taps, or the strong filter's taps):
+# counted only for lines whose strength is not 0, as this run's data needs
+OPS_PER_LUMA_LINE = 60
+OPS_PER_CHROMA_LINE = 30
+
+
+def deblock_bound(args, kw):
+    """Least time the card could take for one deblock on these inputs:
+    the larger of the bytes it must move (the planes read and written
+    once, both strength tensors and the QP map as int32, the progress
+    words) over the memory rate, and the integer ops of the lines whose
+    strength is not 0 (the picture's left and top edges have none) over
+    the ALU rate. Returns (bound_ms, bound_by, bytes, ops)."""
+    y, u, v, bs_v, bs_h, qp = args[:6]
+    nbytes = (2 * sum(p.numel() for p in (y, u, v))
+              + 4 * (bs_v.numel() + bs_h.numel() + qp.numel())
+              + 4 * (kw["mbh"] + 1))
+    bv, bh = bs_v.clone(), bs_h.clone()
+    bv[:, 0, 0] = 0
+    bh[0, :, 0] = 0
+    luma = 4 * int((bv > 0).sum() + (bh > 0).sum())
+    chroma = 4 * int((bv[:, :, 0::2] > 0).sum() + (bh[:, :, 0::2] > 0).sum())
+    ops = OPS_PER_LUMA_LINE * luma + OPS_PER_CHROMA_LINE * chroma
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def capture_calls(module, name, calls, limit=1):
+    """Wrap module.<name> (a function the module looks up when it calls
+    it): the first `limit` calls' (args, kwargs) are appended to `calls`,
+    their tensors cloned, and every call goes through. Returns the
+    function that puts the original back."""
+    import torch
+    real = getattr(module, name)
+
+    def keep(*args, **kw):
+        if len(calls) < limit:
+            calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                           for a in args], dict(kw)))
+        return real(*args, **kw)
+
+    setattr(module, name, keep)
+    return lambda: setattr(module, name, real)
+
+
+def blocky_frame(torch, w, h, seed, dev):
+    """Planes with 16x16 and 4x4 steps and noise, so that the normal and
+    the strong filter both fire."""
+    import numpy as np
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = (110 + 24 * ((xx // 16 + yy // 16) % 2)
+         + 10 * ((xx // 4 + yy // 4) % 2) + r.integers(-3, 4, (h, w)))
+    cy, cx = np.mgrid[0:h // 2, 0:w // 2]
+    u = (120 + 14 * ((cx // 8 + cy // 8) % 2)
+         + r.integers(-3, 4, (h // 2, w // 2)))
+    v = r.integers(100, 140, (h // 2, w // 2))
+    return [torch.from_numpy(np.clip(p, 0, 255).astype(np.uint8)).to(dev)
+            for p in (y, u, v)]
+
+
+def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
+    """Phase 2, the deblock kernel: deblock_cuda against deblock_ref on the
+    card, tolerance 0 (every output is an integer), inputs left as they
+    were: intra and random strengths with per-MB QPs over 0-51 (both ends
+    present) and a_off / b_off / cqpo at -12 / 12 / -12, 0 and 12 / -12 /
+    12 at 64x48, 48x32, 16x16, 16x64 and 128x16 (at offsets 0 also one
+    block walking every row); at 1920x1088 the I frame's reconstruction
+    (phase 2's commit) with intra strengths, with all blocks and with 7
+    (each walks ~10 MB rows), random strengths, and the real calls that
+    the encoder made: P frame 1 at preset medium (compute_strengths, two
+    references) and the default path's first B frame
+    (compute_strengths_b). Then the real P call and the I frame timed
+    (CUDA events, 2 x 20 launches after 3) beside deblock_ref (one run)
+    and their bounds. Returns what the report reads."""
+    import numpy as np
+    worst = 0
+
+    def check(label, args, kw, grids=(None,)):
+        nonlocal worst
+        before = [a.clone() for a in args[:6]]
+        box = []
+        ref_ms = cuda_ms(torch, lambda: box.append(D.deblock_ref(*args,
+                                                                 **kw)), 1)
+        changed = sum(int((r != a).sum()) for r, a in zip(box[0], args[:3]))
+        for grid in grids:
+            got = D.deblock_cuda(*args, grid=grid, **kw)
+            err = max(int((r.int() - g.int()).abs().max())
+                      for r, g in zip(box[0], got))
+            kept = all(torch.equal(b, a) for b, a in zip(before, args))
+            log(f"phase 2 deblock kernel vs deblock_ref {label}"
+                f"{'' if grid is None else f', {grid} block(s)'}: "
+                f"max_abs_err {err} (tolerance 0), pixels changed by the "
+                f"filter {changed}, inputs unchanged {kept}")
+            if err != 0 or not kept:
+                fail(f"deblock kernel disagrees with deblock_ref or wrote "
+                     f"its inputs ({label}, grid {grid})")
+            worst = max(worst, err)
+        return ref_ms
+
+    for w, h in ((64, 48), (48, 32), (16, 16), (16, 64), (128, 16)):
+        mbw, mbh = w // 16, h // 16
+        for kind in ("intra", "random"):
+            for off in (-12, 0, 12):
+                planes = blocky_frame(torch, w, h, int(rng.integers(1 << 30)),
+                                      dev)
+                if kind == "intra":
+                    bs = D.intra_strengths(mbw, mbh, dev)
+                else:
+                    bs = [torch.from_numpy(rng.integers(
+                        0, 5, (mbh, mbw, 4, 4)).astype(np.int32)).to(dev)
+                        for _ in range(2)]
+                qp = rng.integers(0, 52, (mbh, mbw)).astype(np.int32)
+                qp.flat[0], qp.flat[-1] = 0, 51
+                kw = dict(mbw=mbw, mbh=mbh, a_off=off, b_off=-off,
+                          chroma_qp_offset=off)
+                check(f"{w}x{h} {kind} strengths, QP 0-51, offsets "
+                      f"{off}/{-off}/{off}",
+                      [*planes, *bs, torch.from_numpy(qp).to(dev)], kw,
+                      grids=(None, 1) if off == 0 else (None,))
+
+    c_args, c_kw, c_ref, _ = i_frame
+    mbw, mbh = c_args[7], c_args[8]
+    i_args = [p.contiguous() for p in c_ref[1]] + [
+        *D.intra_strengths(mbw, mbh, dev), c_args[5]]
+    i_kw = dict(mbw=mbw, mbh=mbh)
+    size = f"{16 * mbw}x{16 * mbh}"
+    i_plain = check(f"{size} I frame (phase 2's commit), intra strengths",
+                    i_args, i_kw, grids=(None, min(7, mbh)))
+    qp = torch.from_numpy(rng.integers(0, 52, (mbh, mbw)).astype(np.int32))
+    check(f"{size} random strengths, QP 0-51, offsets 12/-12/12",
+          [*blocky_frame(torch, 16 * mbw, 16 * mbh, 3, dev),
+           *[torch.from_numpy(rng.integers(0, 5, (mbh, mbw, 4, 4))
+                              .astype(np.int32)).to(dev) for _ in range(2)],
+           qp.to(dev)],
+          dict(mbw=mbw, mbh=mbh, a_off=12, b_off=-12, chroma_qp_offset=12))
+    p_args, p_kw = p_call
+    p_plain = check(f"{size} P frame 1 at preset medium "
+                    f"(compute_strengths, two references)", p_args, p_kw)
+    b_args, b_kw = b_call
+    check(f"{size} B frame of the default path (compute_strengths_b)",
+          b_args, b_kw)
+
+    out = {"worst": worst, "capacity": D.grid_capacity(dev),
+           "chain_steps": mbw + 2 * (mbh - 1)}
+    for key, args, kw, plain in (("p", p_args, p_kw, p_plain),
+                                 ("i", i_args, i_kw, i_plain)):
+        progs = []
+
+        def run():
+            progs.append(D.deblock_launch(*args, **kw)[1])
+
+        cuda_ms(torch, run, 3)                   # warm-up
+        runs = [cuda_ms(torch, run, 20) for _ in range(2)]
+        for prog in progs:
+            D.check_progress(prog, kw["mbw"])
+        bound_ms, bound_by, nbytes, ops = deblock_bound(args, kw)
+        ms = sum(runs) / len(runs)
+        out[key] = {"ms": ms, "runs": runs, "plain_ms": plain,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "ops": ops,
+                    "us_per_chain_step": ms * 1e3 / out["chain_steps"]}
+        log(f"phase 2 deblock kernel per {size} {key.upper()} frame (CUDA "
+            f"events, 20 runs each): {runs[0]:.4f} / {runs[1]:.4f} ms; "
+            f"deblock_ref {plain:.1f} ms (1 run); bound {bound_ms * 1e3:.3f} "
+            f"us by {bound_by} ({nbytes} bytes, {ops} integer ops); "
+            f"{out['chain_steps']} MB steps in the dependency chain: "
+            f"{out[key]['us_per_chain_step']:.3f} us each")
+    return out
+
+
 # --------------------------------- CLI, farm and mesh, CUDA == CPU (phase 3)
 def cli_run(dev_name, work, name, src, extra):
     """The port's CLI on `src` with --device dev_name -> (output bytes,
@@ -880,17 +1076,40 @@ def farm_params(w, h):
     return p
 
 
+def launch_counts():
+    """(commit, deblock) kernel launches of this process so far."""
+    from x264_tpu_torch.ops import commit as C
+    from x264_tpu_torch.ops import deblock as D
+    return C.commit.launches, D.deblock_frame.launches
+
+
+def reset_launches():
+    """Set both kernels' launch counts to 0 (just before a path runs)."""
+    from x264_tpu_torch.ops import commit as C
+    from x264_tpu_torch.ops import deblock as D
+    C.commit.launches = 0
+    D.deblock_frame.launches = 0
+
+
+def add_launches(launches, n0):
+    """Append the launches since launch_counts() gave n0 to `launches`
+    ({"commit": [...], "deblock": [...]})."""
+    for key, a, b in zip(("commit", "deblock"), n0, launch_counts()):
+        launches[key].append(b - a)
+
+
 def farm_run(torch, C, params, clips, dev, timer=None):
     """FarmEncoder over S clips (one per stream) on `dev` -> (streams,
     per-stream reconstructions (numpy) per frame position, launches per
-    frame position, host seconds). With `timer` (a StageTimer's hooks),
-    the farm's stage functions are timed while it runs."""
+    frame position ({"commit": [...], "deblock": [...]}), host seconds).
+    With `timer` (a StageTimer's hooks), the farm's stage functions are
+    timed while it runs."""
     import contextlib
     from x264_tpu_torch.encoder.encoder import annexb_bytes
     from x264_tpu_torch.encoder.farm import FarmEncoder
     farm = FarmEncoder(params, len(clips), device=dev)
     streams = [annexb_bytes(farm.headers()) for _ in clips]
-    recons, launches = [[] for _ in clips], []
+    recons, launches = [[] for _ in clips], {"commit": [], "deblock": []}
     if dev.type == "cuda":
         torch.cuda.synchronize()
     ctx = (contextlib.nullcontext() if timer is None else StageTimer(
@@ -899,9 +1118,9 @@ def farm_run(torch, C, params, clips, dev, timer=None):
     t0 = time.time()
     with ctx as stages:
         for i in range(len(clips[0])):
-            n0 = C.commit.launches
+            n0 = launch_counts()
             outs = farm.encode_batch([c[i] for c in clips], idr=(i == 0))
-            launches.append(C.commit.launches - n0)
+            add_launches(launches, n0)
             for s, nals in enumerate(outs):
                 streams[s] += annexb_bytes(nals)
                 recons[s].append([r.cpu().numpy() for r in farm.recon[s]])
@@ -925,8 +1144,9 @@ def mb_pad(frame, w, h):
 
 def mesh_run(torch, C, dev, i_frames, p_frames, band_mb_rows, qp=QP):
     """The mesh's I step, then its P step against the I step's
-    reconstructions, on `dev` -> ([intra outputs, P outputs], commit
-    launches of each step, host seconds of each step, the layout)."""
+    reconstructions, on `dev` -> ([intra outputs, P outputs], launches of
+    each step ({"commit": [...], "deblock": [...]}), host seconds of each
+    step, the layout)."""
     import numpy as np
     from x264_tpu_torch.parallel import mesh
     m = mesh.make_mesh(8 if len(i_frames) > 1 else 4, devices=dev)
@@ -935,9 +1155,9 @@ def mesh_run(torch, C, dev, i_frames, p_frames, band_mb_rows, qp=QP):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    out, launches, secs = [], [], []
+    out, launches, secs = [], {"commit": [], "deblock": []}, []
     for step in ("intra", "pframe"):
-        n0 = C.commit.launches
+        n0 = launch_counts()
         sync()
         t0 = time.time()
         if step == "intra":
@@ -950,7 +1170,7 @@ def mesh_run(torch, C, dev, i_frames, p_frames, band_mb_rows, qp=QP):
                                            band_mb_rows=band_mb_rows)
         sync()
         secs.append(time.time() - t0)
-        launches.append(C.commit.launches - n0)
+        add_launches(launches, n0)
         out.append(r)
     return out, launches, secs, m
 
@@ -1088,8 +1308,9 @@ def cli_case(tag, work, src, configs, dev_name):
 
 def farm_case(w, h, n, dev_name):
     """The farm (S = 2, n frames) on `dev_name` and on the CPU: streams
-    equal, one commit launch per frame position on the card; at 640 wide
-    refdec is to decode each stream to the farm's reconstructions."""
+    equal, one commit and two deblock launches per frame position on the
+    card; at 640 wide refdec is to decode each stream to the farm's
+    reconstructions."""
     import torch
     from x264_tpu_torch.ops import commit as C
     dev = torch.device(dev_name)
@@ -1101,9 +1322,10 @@ def farm_case(w, h, n, dev_name):
                                     torch.device("cpu"))
     if g_streams != c_streams:
         fail(f"phase 3 farm {w}x{h}: CUDA and CPU streams differ")
-    if dev.type == "cuda" and g_l != [1] * n:
-        fail(f"phase 3 farm {w}x{h}: commit launches per frame position "
-             f"{g_l}, expected 1 each")
+    if dev.type == "cuda" and (g_l["commit"] != [1] * n
+                               or g_l["deblock"] != [2] * n):
+        fail(f"phase 3 farm {w}x{h}: launches per frame position {g_l}, "
+             f"expected 1 commit and 2 deblocks (one per stream) each")
     decode = []
     if w == 640:
         decode = [(f"farm {w}x{h} stream {s}", st,
@@ -1112,15 +1334,16 @@ def farm_case(w, h, n, dev_name):
                   for s, st in enumerate(g_streams)]
     return {"log": [
         f"phase 3 farm S=2 {w}x{h} x{n}: CUDA streams == CPU streams "
-        f"({[len(st) for st in g_streams]} bytes); commit launches per "
-        f"frame position {g_l}; CUDA {g_s:.1f} s, CPU {c_s:.1f} s"],
+        f"({[len(st) for st in g_streams]} bytes); launches per frame "
+        f"position {g_l}; CUDA {g_s:.1f} s, CPU {c_s:.1f} s"],
         "decode": decode}
 
 
 def mesh_case(dev_name):
     """The mesh (2 streams x 4 bands of 2 MB rows, I then P) at 64x128 on
     `dev_name` and on the CPU: bytes and reconstructions equal, one commit
-    launch for the I step and none for the P step on the card; refdec is
+    launch for the I step and none for the P step on the card, and no
+    deblock launch for the I step and one per band for the P step; refdec is
     to decode each intra band, coded as a frame of its own (refdec decodes
     no multi-slice stream), to its reconstruction."""
     import torch
@@ -1141,18 +1364,56 @@ def mesh_case(dev_name):
         if not all(torch.equal(a[2][c].cpu(), b[2][c]) for c in range(3)):
             fail(f"phase 3 mesh {step}: CUDA and CPU reconstructions "
                  f"differ")
-    if dev.type == "cuda" and g_l != [1, 0]:
-        fail(f"phase 3 mesh: commit launches {g_l}, expected 1 (I step) "
-             f"and 0 (P step)")
+    if dev.type == "cuda" and (g_l["commit"] != [1, 0]
+                               or g_l["deblock"] != [0, 8]):
+        fail(f"phase 3 mesh: launches {g_l}, expected commit 1 (I step) "
+             f"and 0 (P step), deblock 0 (I step) and 8 (P step: one per "
+             f"band)")
     decode = [(f"mesh stream {s} intra band {b}",
                band_stream(g_out[0], s, b, 64, 2),
                [[g_out[0][2][c][s, b].cpu().numpy() for c in range(3)]],
                64, 32) for s in range(2) for b in range(4)]
     return {"log": [
         f"phase 3 mesh 2 streams x 4 bands 64x128, I then P: CUDA bytes == "
-        f"CPU bytes ({sizes}), reconstructions equal; commit launches I "
-        f"step {g_l[0]}, P step {g_l[1]}; CUDA {sum(g_s):.1f} s, CPU "
+        f"CPU bytes ({sizes}), reconstructions equal; launches (I step, P "
+        f"step) {g_l}; CUDA {sum(g_s):.1f} s, CPU "
         f"{sum(c_s):.1f} s"], "decode": decode}
+
+
+def deblock_tall_case(dev_name):
+    """The deblock kernel on a frame whose MB rows outnumber the blocks
+    that the card holds at once (2 MBs wide, capacity + 5 MB rows, so some
+    blocks walk two rows) against deblock_ref on the CPU, bit-exact: random
+    strengths, QPs over 0-51. The plain version takes about a minute here,
+    which is why it runs in phase 3's pool. On the CPU (a rehearsal) the
+    frame has 13 rows and deblock_frame is deblock_ref."""
+    import numpy as np
+    import torch
+    from x264_tpu_torch.ops import deblock as D
+    dev, cpu = torch.device(dev_name), torch.device("cpu")
+    cap = D.grid_capacity(dev) if dev.type == "cuda" else 8
+    mbw, mbh = 2, cap + 5
+    rng = np.random.default_rng(11)
+    inputs = blocky_frame(torch, 16 * mbw, 16 * mbh, 11, cpu) + [
+        torch.from_numpy(rng.integers(0, 5, (mbh, mbw, 4, 4))
+                         .astype(np.int32)) for _ in range(2)] + [
+        torch.from_numpy(rng.integers(0, 52, (mbh, mbw)).astype(np.int32))]
+    kw = dict(mbw=mbw, mbh=mbh, a_off=6, b_off=-6, chroma_qp_offset=6)
+    t0 = time.time()
+    ref = D.deblock_ref(*inputs, **kw)
+    ref_s = time.time() - t0
+    n0 = D.deblock_frame.launches
+    got = D.deblock_frame(*[t.to(dev) for t in inputs], **kw)
+    launches = D.deblock_frame.launches - n0
+    err = max(int((r.int() - g.cpu().int()).abs().max())
+              for r, g in zip(ref, got))
+    if err != 0 or launches != (dev.type == "cuda"):
+        fail(f"phase 3 deblock kernel on {16 * mbw}x{16 * mbh}: max_abs_err "
+             f"{err}, {launches} launches")
+    return {"log": [
+        f"phase 3 deblock kernel vs deblock_ref (CPU, {ref_s:.1f} s) "
+        f"{16 * mbw}x{16 * mbh}: {mbh} MB rows on {cap} co-resident blocks "
+        f"in {launches} launch: max_abs_err {err} (tolerance 0)"]}
 
 
 def cpu_prefix(key, params, frames):
@@ -1185,7 +1446,9 @@ def cpu_default_frame0(key, params, frames):
 
 def phase3_cases(dev_name, mid):
     """Phase 3's cases, (key, function, arguments), the longest first:
-    the 640x360 option configurations (their refdec takes longest), the
+    the deblock kernel on a frame taller than its co-resident grid (its
+    plain version takes a minute on the CPU), the 640x360 option
+    configurations (their refdec takes longest), the
     defaults over 28 frames, the 640x360 farm and paths, the CLI and the
     mesh, then the 64x48 configurations."""
     import numpy as np
@@ -1216,7 +1479,7 @@ def phase3_cases(dev_name, mid):
         # deblock is on (libavcodec does not), so it stays off
         ("PCM", pcm_params, {}),
         ("SSIM", option_params(analyse__ssim=True), {"ssim": True}))
-    big, small = [], []
+    big, small = [("deblock tall frame", deblock_tall_case, (dev_name,))], []
 
     def add(to, label, make, frames, **opts):
         h, w = frames[0][0].shape
@@ -1355,13 +1618,14 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     res = {}
     # ---- farm: fps from a run without the stage timer, stages from a
     # second run (its streams must equal the first's) ----
-    C.commit.launches = 0
+    reset_launches()
     streams, recons, launches, secs = farm_run(
         torch, C, farm_params(w, h), clips, dev)
-    if launches != [1] * N_FARM_FRAMES or \
-            C.commit.launches != N_FARM_FRAMES:
-        fail(f"phase 10 farm: commit launches per frame position {launches}"
-             f", expected 1 each")
+    if launches["commit"] != [1] * N_FARM_FRAMES or \
+            launches["deblock"] != [2] * N_FARM_FRAMES or \
+            launch_counts() != (N_FARM_FRAMES, 2 * N_FARM_FRAMES):
+        fail(f"phase 10 farm: launches per frame position {launches}, "
+             f"expected 1 commit and 2 deblocks (one per stream) each")
     again, _, _, t_secs, stages = farm_run(
         torch, C, farm_params(w, h), clips, dev, timer=FARM_HOOKS)
     if again != streams:
@@ -1374,19 +1638,21 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
                    "stages": stages}
     log(f"phase 10 farm S=2 x {N_FARM_FRAMES} x 1080p (I P P, one batched "
         f"commit per frame position): fps {res['farm']['fps']:.4f} (frames "
-        f"x streams / s; {secs:.3f} s, first position included); commit "
+        f"x streams / s; {secs:.3f} s, first position included); "
         f"launches per frame position {launches}; bytes "
         f"{[frame_bytes(s) for s in streams]}; PSNR Y {psnr}; stages ms per "
         f"frame position (a second run, {t_secs:.3f} s, streams equal; host "
         f"clock, synchronised around each stage): " + json.dumps(stages))
     # ---- mesh: the same, fps untimed, stages from a second run ----
-    C.commit.launches = 0
+    reset_launches()
     (intra_o, p_o), m_l, m_s, layout = mesh_run(
         torch, C, dev, [frames0[0]], [frames0[1]], band_rows)
-    if m_l != [1, 0] or C.commit.launches != 1:
-        fail(f"phase 10 mesh: commit launches {m_l}, expected 1 and 0")
+    if m_l["commit"] != [1, 0] or m_l["deblock"] != [0, 4] or \
+            launch_counts() != (1, 4):
+        fail(f"phase 10 mesh: launches {m_l}, expected commit 1 and 0, "
+             f"deblock 0 and 4 (one per band)")
     # the batched entry of the kernel line: the mesh I step's launches
-    res["launches"] = m_l[0]
+    res["launches"] = m_l["commit"][0]
     with StageTimer(torch, None, hooks=MESH_HOOKS, dpb_push=False) as timer:
         (intra_t, p_t), _, m_ts, _ = mesh_run(
             torch, C, dev, [frames0[0]], [frames0[1]], band_rows)
@@ -1408,7 +1674,7 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     log(f"phase 10 mesh 1 stream x 4 bands of 17 MB rows at 1080p (layout "
         f"{layout.shape} of make_mesh(4); I step, then P step): fps "
         f"{res['mesh']['fps']:.4f} ({m_s[0]:.3f} s I, {m_s[1]:.3f} s P); "
-        f"commit launches {m_l}; {len(m_bytes)} bytes (band bits I "
+        f"launches (I step, P step) {m_l}; {len(m_bytes)} bytes (band bits I "
         f"{intra_o[1][0].tolist()}, P {p_o[1][0].tolist()}); PSNR Y "
         f"{m_psnr}; stages ms (a second run, {sum(m_ts):.3f} s, words "
         f"equal; host clock, synchronised around each stage): "
@@ -1419,23 +1685,28 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     src = y4m_clip(work, "cli1080", clip[:N_CLI_FRAMES], w, h)
     opts = ["--preset", "ultrafast", "--bitrate", "8000", "--vbv-maxrate",
             "8000", "--vbv-bufsize", "16000", "--nal-hrd", "cbr"]
-    C.commit.launches = 0
+    reset_launches()
     out, _, secs = cli_run("cuda", work, "cli1080", src, opts + ["mp4"])
-    cli_launches = C.commit.launches
+    cli_launches, cli_deblocks = launch_counts()
     if cli_launches != N_CLI_FRAMES:
         fail(f"phase 10 CLI: {cli_launches} commit launches for "
              f"{N_CLI_FRAMES} frames")
+    if cli_deblocks != 0:
+        fail(f"phase 10 CLI: {cli_deblocks} deblock launches at ultrafast "
+             f"(no deblock)")
     with StageTimer(torch, None, dpb_push=False) as timer:
         again, _, _ = cli_run("cuda", work, "cli1080t", src, opts + ["mp4"])
     if again != out:
         fail("phase 10 CLI: the timed run's output differs")
     res["cli"] = {"fps": N_CLI_FRAMES / secs, "launches": cli_launches,
+                  "deblocks": cli_deblocks,
                   "stages": timer.ms, "calls": timer.calls}
     log(f"phase 10 CLI 1080p x{N_CLI_FRAMES} (y4m by Y4MWriter, preset "
         f"ultrafast, ABR 8000 kb/s, VBV, nal-hrd cbr, .mp4; "
         f"cli.main --device cuda): fps {res['cli']['fps']:.4f} ({secs:.3f} "
         f"s, reading and muxing included); commit launches {cli_launches} "
-        f"(1 per frame); {len(out)} bytes; stages ms summed over the "
+        f"(1 per frame), deblock launches {cli_deblocks}; {len(out)} bytes; "
+        f"stages ms summed over the "
         f"clip, and their calls (a second run, output equal): "
         + json.dumps(res["cli"]["stages"]) + " "
         + json.dumps(res["cli"]["calls"]))
@@ -1456,7 +1727,9 @@ def main():
     from bench import synth_clip
     from x264_tpu_torch.encoder.encoder import (TYPE_B, TYPE_IDR, TYPE_P,
                                                 Encoder, Picture)
+    from x264_tpu_torch.encoder import bframe
     from x264_tpu_torch.ops import commit as C
+    from x264_tpu_torch.ops import deblock as D
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1482,10 +1755,12 @@ def main():
     th.start()
     lib = C.build_library()
     C._library()
+    D._library()
     cap = C.grid_capacity(dev)
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
-        f"{os.path.relpath(lib, ROOT)}; frame kernel: {cap} co-resident "
-        f"blocks")
+        f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu and csrc/deblock.cu, "
+        f"one nvcc each, started together); frame kernel: {cap} co-resident "
+        f"blocks; deblock kernel: {D.grid_capacity(dev)}")
     th.join()
     if "error" in cabac_build:
         fail(f"csrc/cabac.cpp did not build or load: {cabac_build['error']}")
@@ -1516,13 +1791,17 @@ def main():
             f"bframe_adaptive = 0, everything else at its default")
     p8.analyse.psnr = True
     enc8 = Encoder(p8, device=dev)
+    # the first B frame's deblock inputs, kept for phase 2 (one clone)
+    b_deblock = []
+    restore = capture_calls(bframe, "deblock_frame", b_deblock)
     torch.cuda.synchronize()
-    C.commit.launches = 0
+    reset_launches()
     t0 = time.time()
     stream8, outs8 = encode_stream(enc8, clip8, Picture)
     torch.cuda.synchronize()
     wall8 = time.time() - t0
-    launches_d = C.commit.launches
+    launches_d, deblocks_d = launch_counts()
+    restore()
     refdec8 = refdec_start(stream8, "default", background=True)
     types8 = [o.i_type for o in outs8]
     n_ip = sum(t != TYPE_B for t in types8)
@@ -1530,7 +1809,8 @@ def main():
         f"order), pts {[o.pts for o in outs8]}, {len(stream8)} bytes, bytes "
         f"by type {enc8.stats['bytes_by_type']}, bytes per frame "
         f"{frame_bytes(stream8)}, QPs {[o.qp for o in outs8]}, commit "
-        f"launches {launches_d} (I + P frames: {n_ip}), B MBs "
+        f"launches {launches_d} (I + P frames: {n_ip}), deblock launches "
+        f"{deblocks_d} (frames: {len(outs8)}), B MBs "
         f"{enc8.stats['mb'].get('B')} (direct counts the skipped MBs too), "
         f"P MBs {enc8.stats['mb']['P']}, weightp frames "
         f"{enc8.stats.get('weightp_frames', 0)}")
@@ -1542,6 +1822,10 @@ def main():
     # must simply make one launch per I or P frame and none per B frame
     if launches_d != n_ip:
         fail(f"commit launches {launches_d} != {n_ip} I and P frames")
+    if deblocks_d < len(outs8) or not b_deblock:
+        fail(f"default path: {deblocks_d} deblock launches for "
+             f"{len(outs8)} deblocked frames, B deblock calls seen "
+             f"{len(b_deblock)}")
     for o in outs8:
         shapes = [tuple(np.asarray(r).shape) for r in o.recon]
         if shapes != [(1080, 1920), (540, 960), (540, 960)]:
@@ -1613,12 +1897,14 @@ def main():
     # the encoder's own dispatch of frame 1 (against frame 0's
     # reconstruction) makes, at preset medium (with I_4x4) and at
     # ultrafast (without)
-    real_p = {}
+    real_p, p_deblock = {}, []
     for variant, make in (("mixed+i4", ippp_params),
                           ("mixed", ultrafast_params)):
         enc_p = Encoder(make(1920, 1080), device=dev)
         enqueue(enc_p, clip[0], TYPE_IDR, 0)
-        pargs, pkw = captured_commit(enc_p, clip[1], 1)
+        pargs, pkw = captured_commit(
+            enc_p, clip[1], 1,
+            deblock_calls=p_deblock if variant == "mixed+i4" else None)
         del enc_p
         if ("i4_mask" in pkw) != (variant == "mixed+i4"):
             fail(f"the {variant} P frame's commit has the wrong variant")
@@ -1665,26 +1951,35 @@ def main():
     batched = batched_phase(torch, C, dev, rng, clip, enc_big, qp_i, cap)
     worst = max(worst, batched["worst"])
     mark("2 the batched launch")
+    if len(p_deblock) != 1:
+        fail(f"P frame 1 at preset medium made {len(p_deblock)} deblock "
+             f"calls, expected 1")
+    dbk = deblock_phase(torch, D, dev, rng, timing_args, p_deblock[0],
+                        b_deblock[0])
+    mark("2 the deblock kernel")
 
     # ---- phase 4: the all-intra path, 2 x 1080p through Encoder.encode --
     p4 = intra_params(1920, 1080)
     p4.analyse.psnr = True
     enc = Encoder(p4, device=dev)
     torch.cuda.synchronize()
-    C.commit.launches = 0
+    reset_launches()
     t0 = time.time()
     stream, outs = encode_stream(enc, clip[:N_FRAMES], Picture)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = C.commit.launches
+    launches, deblocks = launch_counts()
     retries = sum((o.qp - qp_i) // 4 for o in outs)
     log(f"phase 4 all-intra path: {len(outs)} frames, {len(stream)} bytes, "
         f"QPs {[o.qp for o in outs]}, commit launches {launches} "
-        f"(= {N_FRAMES} frames + {retries} re-encodes)")
+        f"(= {N_FRAMES} frames + {retries} re-encodes), deblock launches "
+        f"{deblocks}")
     if len(outs) != N_FRAMES:
         fail(f"{len(outs)} frames out of {N_FRAMES}")
     if launches != N_FRAMES + retries:
         fail(f"commit launches {launches} != {N_FRAMES} + {retries}")
+    if deblocks < N_FRAMES:
+        fail(f"deblock launches {deblocks} < {N_FRAMES} deblocked frames")
     for o in outs:
         shapes = [tuple(np.asarray(r).shape) for r in o.recon]
         if shapes != [(1080, 1920), (540, 960), (540, 960)]:
@@ -1708,12 +2003,12 @@ def main():
     enc5 = Encoder(p5, device=dev)
     qp_p = Encoder(p5, device=dev).rc.start(TYPE_P, -1, frame_idx=1)
     torch.cuda.synchronize()
-    C.commit.launches = 0
+    reset_launches()
     t0 = time.time()
     stream5, outs5 = encode_stream(enc5, clip[:N_P_FRAMES], Picture)
     torch.cuda.synchronize()
     wall5 = time.time() - t0
-    launches_p = C.commit.launches
+    launches_p, deblocks_p = launch_counts()
     types = [o.i_type for o in outs5]
     nominal = {TYPE_IDR: qp_i, TYPE_P: qp_p}
     retries5 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs5)
@@ -1721,12 +2016,16 @@ def main():
         f"{len(stream5)} bytes, bytes by type "
         f"{enc5.stats['bytes_by_type']}, QPs {[o.qp for o in outs5]}, "
         f"commit launches {launches_p} (= {N_P_FRAMES} frames + "
-        f"{retries5} re-encodes), P MBs {enc5.stats['mb']['P']}, weightp "
+        f"{retries5} re-encodes), deblock launches {deblocks_p}, P MBs "
+        f"{enc5.stats['mb']['P']}, weightp "
         f"frames {enc5.stats.get('weightp_frames', 0)}")
     if types != [TYPE_IDR] + [TYPE_P] * (N_P_FRAMES - 1):
         fail(f"frame types {types}, expected IDR then {N_P_FRAMES - 1} P")
     if launches_p != N_P_FRAMES + retries5:
         fail(f"commit launches {launches_p} != {N_P_FRAMES} + {retries5}")
+    if deblocks_p < N_P_FRAMES:
+        fail(f"deblock launches {deblocks_p} < {N_P_FRAMES} deblocked "
+             f"frames")
     for o in outs5:
         shapes = [tuple(np.asarray(r).shape) for r in o.recon]
         if shapes != [(1080, 1920), (540, 960), (540, 960)]:
@@ -1745,25 +2044,29 @@ def main():
         fail("the CABAC configuration lost CABAC or trellis 1")
     enc7 = Encoder(p7, device=dev)
     torch.cuda.synchronize()
-    C.commit.launches = 0
+    reset_launches()
     t0 = time.time()
     stream7, outs7 = encode_stream(enc7, clip[:N_CABAC_FRAMES], Picture)
     torch.cuda.synchronize()
     wall7 = time.time() - t0
-    launches_c = C.commit.launches
+    launches_c, deblocks_c = launch_counts()
     types7 = [o.i_type for o in outs7]
     retries7 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs7)
     log(f"phase 7 CABAC main path: {len(outs7)} frames, types {types7}, "
         f"{len(stream7)} bytes, bytes by type "
         f"{enc7.stats['bytes_by_type']}, QPs {[o.qp for o in outs7]}, "
         f"commit launches {launches_c} (= {N_CABAC_FRAMES} frames + "
-        f"{retries7} re-encodes), P MBs {enc7.stats['mb']['P']}, weightp "
+        f"{retries7} re-encodes), deblock launches {deblocks_c}, P MBs "
+        f"{enc7.stats['mb']['P']}, weightp "
         f"frames {enc7.stats.get('weightp_frames', 0)}")
     if types7 != [TYPE_IDR] + [TYPE_P] * (N_CABAC_FRAMES - 1):
         fail(f"CABAC frame types {types7}")
     if launches_c != N_CABAC_FRAMES + retries7:
         fail(f"commit launches {launches_c} != {N_CABAC_FRAMES} + "
              f"{retries7}")
+    if deblocks_c < N_CABAC_FRAMES:
+        fail(f"deblock launches {deblocks_c} < {N_CABAC_FRAMES} deblocked "
+             f"frames")
     if enc7.stats["mb"]["P"]["8x8"] != 0:
         fail("a CABAC frame coded P_8x8 MBs")
     for o in outs7:
@@ -1916,14 +2219,36 @@ def main():
         "bound_by": batched["band_bound_by"], "library_ms": None,
         "shape": "the mesh's I step on one 1080p frame: 4 bands of 17 MB "
                  "rows in one launch",
-        "launches_farm_1080p": full["farm"]["launches"],
-        "launches_mesh_1080p": full["mesh"]["launches"],
+        "launches_farm_1080p": full["farm"]["launches"]["commit"],
+        "launches_mesh_1080p": full["mesh"]["launches"]["commit"],
         "launches_cli_1080p": full["cli"]["launches"],
         "s_1080p_frames": {str(S): {
             "batched_ms": sum(t["batched_ms"]) / 2,
             "singles_ms": sum(t["singles_ms"]) / 2,
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
-            for S, t in batched["timing"].items()}}]}))
+            for S, t in batched["timing"].items()}}, {
+        "name": "deblock_frame_kernel", "route": "cuda",
+        "source": "x264_tpu_torch/csrc/deblock.cu",
+        "replaces": "x264_tpu/ops/deblock.py:263 (jnp lax.scan)",
+        "launches": deblocks_p, "max_abs_err": dbk["worst"],
+        "ms": dbk["p"]["ms"], "plain_ms": dbk["p"]["plain_ms"],
+        "bound_ms": dbk["p"]["bound_ms"], "bound_by": dbk["p"]["bound_by"],
+        "library_ms": None,
+        "shape": "P frame 1 of the 1080p clip at preset medium "
+                 "(compute_strengths, two references)",
+        "i_frame_ms": dbk["i"]["ms"], "i_frame_plain_ms": dbk["i"]["plain_ms"],
+        "i_frame_bound_ms": dbk["i"]["bound_ms"],
+        "i_frame_bound_by": dbk["i"]["bound_by"],
+        "chain_steps": dbk["chain_steps"],
+        "co_resident_blocks": dbk["capacity"],
+        "launches_all_intra_path": deblocks,
+        "launches_cabac_path": deblocks_c,
+        "launches_default_path": deblocks_d,
+        "launches_ultrafast_path": fast["ultrafast"]["deblocks"],
+        "launches_intra_refresh_path": fast["intra refresh"]["deblocks"],
+        "launches_farm_1080p": full["farm"]["launches"]["deblock"],
+        "launches_mesh_1080p": full["mesh"]["launches"]["deblock"],
+        "launches_cli_1080p": full["cli"]["deblocks"]}]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
@@ -1966,12 +2291,12 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     enc._enqueue_frame = counted
     enc._pir_advance = banded
     torch.cuda.synchronize()
-    C.commit.launches = 0
+    reset_launches()
     t0 = time.time()
     stream, outs = encode_stream(enc, clip, Picture)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = C.commit.launches
+    launches, deblocks = launch_counts()
     types = [o.i_type for o in outs]
     n = len(clip)
     retries = sum((o.qp - qp_i) // 4 if o.i_type == TYPE_IDR else
@@ -1980,12 +2305,15 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
         f"{len(stream)} bytes, bytes per frame {frame_bytes(stream)}, QPs "
         f"{[o.qp for o in outs]}, keyframes {[o.b_keyframe for o in outs]}, "
         f"commit launches {launches} (per dispatched frame {per_frame}; "
-        f"{n} frames + {retries} re-encodes), P MBs "
-        f"{enc.stats['mb']['P']}")
+        f"{n} frames + {retries} re-encodes), deblock launches {deblocks} "
+        f"(ultrafast: no deblock), P MBs {enc.stats['mb']['P']}")
     if types != [TYPE_IDR] + [TYPE_P] * (n - 1):
         fail(f"{label}: frame types {types}")
     if launches != n + retries:
         fail(f"{label}: commit launches {launches} != {n} + {retries}")
+    if params.deblocking_filter or deblocks != 0:
+        fail(f"{label}: {deblocks} deblock launches, deblock "
+             f"{params.deblocking_filter}: ultrafast must not deblock")
     if params.intra_refresh:
         swept = [[b["frame"], *b["columns"], b["recovery"]] for b in bands
                  if b and b["columns"][0] <= b["columns"][1]]
@@ -2016,6 +2344,7 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     # frames 0-1 against the CPU port's: a case of phase 3
     key = f"phase 9 1080p {label} frames 0-1"
     return {"fps": n / wall, "wall": wall, "launches": launches,
+            "deblocks": deblocks,
             "stages": stages, "frames": n, "timed": list(timed_calls),
             "stream": stream,
             "cpu_case": (key, cpu_prefix, (key, params.copy(), clip[:2]))}
@@ -2079,10 +2408,11 @@ def enqueue(enc, frame, ftype, idx):
     enc._pipe.clear()
 
 
-def captured_commit(enc, frame, idx):
+def captured_commit(enc, frame, idx, deblock_calls=None):
     """Dispatch `frame` as P frame `idx` of `enc` (the encoder's own
     dispatch, as enqueue) and return the (args, kwargs) of the commit
-    that its P pipeline called."""
+    that its P pipeline called. With a list `deblock_calls`, the P
+    pipeline's deblock call lands there too (capture_calls)."""
     from x264_tpu_torch.encoder import inter
     from x264_tpu_torch.encoder.encoder import TYPE_P
     real, calls = inter.commit, []
@@ -2092,10 +2422,13 @@ def captured_commit(enc, frame, idx):
         return real(*args, **kw)
 
     inter.commit = keep
+    restore = (capture_calls(inter, "deblock_frame", deblock_calls)
+               if deblock_calls is not None else (lambda: None))
     try:
         enqueue(enc, frame, TYPE_P, idx)
     finally:
         inter.commit = real
+        restore()
     if len(calls) != 1:
         fail(f"P frame {idx} made {len(calls)} commit calls, expected 1")
     return calls[0]

@@ -29,17 +29,16 @@ zero-initialised skewed planes give; valid modes never read one anyway.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
 from ..device import const
-from . import dct, predict, quant, tables
+from . import _cuda, dct, predict, quant, tables
+# the build and the progress check, for callers of this module
+from ._cuda import build_library, check_progress  # noqa: F401
+from ._cuda import check_tensor
 
 # z-scan coding order of the 16 luma 4x4 blocks (spec figure 6-10)
 I4_ZX = np.array([0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3])
@@ -318,46 +317,8 @@ def commit_ref(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
 
 
 # ------------------------------------------------------------- CUDA kernel
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "commit.cu")
-_BUILD = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 _LIB = {}
 _LIB_LOCK = threading.Lock()
-
-
-def _nvcc():
-    exe = shutil.which("nvcc")
-    if exe is None:
-        cand = "/usr/local/cuda/bin/nvcc"
-        exe = cand if os.path.exists(cand) else None
-    if exe is None:
-        raise RuntimeError("nvcc not found: cannot build the commit kernel")
-    return exe
-
-
-def build_library() -> str:
-    """Compile csrc/commit.cu for sm_90a into _build/<source hash>/ (once per
-    source version) and return the library path. Raises on failure."""
-    with open(_SRC, "rb") as f:
-        key = hashlib.sha256(f.read()).hexdigest()[:16]
-    out_dir = os.path.join(_BUILD, key)
-    lib = os.path.join(out_dir, "libx264t_kernels.so")
-    if os.path.exists(lib):
-        return lib
-    nvcc = _nvcc()
-    os.makedirs(out_dir, exist_ok=True)
-    tmp = lib + f".tmp{os.getpid()}"
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-           _SRC]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed building the commit kernel:\n"
-                           + r.stdout + r.stderr)
-    with open(os.path.join(out_dir, "build.log"), "w") as f:
-        f.write(r.stdout + r.stderr)     # ptxas: registers, shared memory
-    os.replace(tmp, lib)
-    return lib
 
 
 class _CommitArgs(ctypes.Structure):
@@ -376,14 +337,12 @@ class _CommitArgs(ctypes.Structure):
 def _library():
     with _LIB_LOCK:
         if "lib" not in _LIB:
-            lib = ctypes.CDLL(build_library())
+            lib = _cuda.library()
             args_p = ctypes.POINTER(_CommitArgs)
             lib.x264t_commit_frame.restype = ctypes.c_int
             lib.x264t_commit_frame.argtypes = [
                 args_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p]
-            lib.x264t_commit_capacity.restype = ctypes.c_int
-            lib.x264t_commit_capacity.argtypes = []
             lib.x264t_commit_diag.restype = ctypes.c_int
             lib.x264t_commit_diag.argtypes = [args_p, ctypes.c_int,
                                               ctypes.c_void_p]
@@ -400,15 +359,7 @@ def _library():
 
 def grid_capacity(device) -> int:
     """Blocks of the frame kernel that `device` holds at once."""
-    key = ("capacity", torch.device(device).index)
-    if key not in _LIB:
-        with torch.cuda.device(device):
-            n = _library().x264t_commit_capacity()
-        if n <= 0:
-            raise RuntimeError(f"commit kernel occupancy query failed: CUDA "
-                               f"error {-n}")
-        _LIB[key] = n
-    return _LIB[key]
+    return _cuda.capacity("commit", device)
 
 
 def _quant_tables(device):
@@ -418,19 +369,6 @@ def _quant_tables(device):
         tables.QUANT4_MF.reshape(-1), tables.DEQUANT4_MF.reshape(-1),
         tables.QUANT4_SCALE[:, 0], tables.DEQUANT4_SCALE[:, 0]])
     return const(tab, device)
-
-
-def _check(t, name, shape, dtype, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
 
 
 def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
@@ -447,24 +385,24 @@ def _kernel_args(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
         raise ValueError(f"y: expected [B, H, W], got {tuple(y.shape)}")
     B, H, W = y.shape[0], 16 * mbh, 16 * mbw
     u8, i32 = torch.uint8, torch.int32
-    _check(y, "y", (B, H, W), u8, dev)
-    _check(u, "u", (B, H // 2, W // 2), u8, dev)
-    _check(v, "v", (B, H // 2, W // 2), u8, dev)
+    check_tensor(y, "y", (B, H, W), u8, dev)
+    check_tensor(u, "u", (B, H // 2, W // 2), u8, dev)
+    check_tensor(v, "v", (B, H // 2, W // 2), u8, dev)
     for name, t in (("i16_mode", i16_mode), ("chroma_mode", chroma_mode),
                     ("qp_mb", qp_mb), ("qpc_mb", qpc_mb)):
-        _check(t, name, (B, mbh, mbw), i32, dev)
+        check_tensor(t, name, (B, mbh, mbw), i32, dev)
     if (i4_mask is None) != (i4_modes is None):
         raise ValueError("i4_mask and i4_modes go together")
     if (is_intra is None) != (inter_planes is None):
         raise ValueError("is_intra and inter_planes go together")
     if i4_mask is not None:
-        _check(i4_mask, "i4_mask", (B, mbh, mbw), torch.bool, dev)
-        _check(i4_modes, "i4_modes", (B, mbh, mbw, 16), i32, dev)
+        check_tensor(i4_mask, "i4_mask", (B, mbh, mbw), torch.bool, dev)
+        check_tensor(i4_modes, "i4_modes", (B, mbh, mbw, 16), i32, dev)
     if is_intra is not None:
-        _check(is_intra, "is_intra", (B, mbh, mbw), torch.bool, dev)
-        _check(inter_planes[0], "inter y", (B, H, W), u8, dev)
-        _check(inter_planes[1], "inter u", (B, H // 2, W // 2), u8, dev)
-        _check(inter_planes[2], "inter v", (B, H // 2, W // 2), u8, dev)
+        check_tensor(is_intra, "is_intra", (B, mbh, mbw), torch.bool, dev)
+        check_tensor(inter_planes[0], "inter y", (B, H, W), u8, dev)
+        check_tensor(inter_planes[1], "inter u", (B, H // 2, W // 2), u8, dev)
+        check_tensor(inter_planes[2], "inter v", (B, H // 2, W // 2), u8, dev)
     # the frame kernel copies tiles of these with cp.async (of a mask, the
     # aligned 4-byte word holding an MB's byte: at most 3 bytes past the
     # mask's end, inside its allocation, which PyTorch rounds up to 512)
@@ -550,7 +488,7 @@ def commit_launch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
     if not 1 <= grid <= cap:
         raise ValueError(f"grid {grid} outside 1..{cap}")
     if stats is not None:
-        _check(stats, "stats", (grid, len(STATS_FIELDS)), torch.int64,
+        check_tensor(stats, "stats", (grid, len(STATS_FIELDS)), torch.int64,
                y.device)
     prog = torch.zeros(rows + 1, dtype=torch.int32, device=y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -563,17 +501,6 @@ def commit_launch(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
     if single:
         out, recon = _first_item(out, recon)
     return out, recon, prog
-
-
-def check_progress(prog, mbw):
-    """Raise unless the launch that filled `prog` finished every MB row of
-    every item (synchronises with it)."""
-    p = prog.cpu()
-    if int(p[-1]) != 0:
-        raise RuntimeError("commit kernel: a wavefront wait ran past its "
-                           "bound; the frame is incomplete")
-    if int(p[:-1].min()) != mbw:
-        raise RuntimeError("commit kernel: rows left unfinished")
 
 
 def commit_cuda(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,

@@ -1,13 +1,26 @@
 """In-loop deblocking filter (spec 8.7; x264_tpu/ops/deblock.py).
 
-The filter runs as a wavefront over MB anti-diagonals, which reproduces
-the spec's raster MB order: within diagonal d, every MB's vertical edges
-are filtered first, then every MB's horizontal edges. V(x, y) needs its
-left MB final (diagonal d-1); H(x, y) needs V(x, y) and its top MB, whose
-right neighbour (x+1, y-1) is on diagonal d and filters its left edge in
-the V phase. Each phase gathers one region per MB of the diagonal straight
-from raster planes (the regions of one phase do not overlap), filters it
-and scatters it back.
+Two versions of one function, with the outputs of x264_tpu's
+`deblock_frame` (a jnp `lax.scan` over the MB anti-diagonals):
+
+- `deblock_ref`, plain PyTorch, on any device. It filters groups of MBs
+  in an order that reproduces the spec's raster MB order: within a group,
+  every MB's vertical edges first, then every MB's horizontal edges. With
+  `order="diagonal"` (the default, x264_tpu's schedule) a group is one
+  anti-diagonal d = x + y: V(x, y) needs its left MB final (diagonal
+  d-1); H(x, y) needs V(x, y) and its top MB, whose right neighbour
+  (x+1, y-1) is on diagonal d and filters its left edge in the V phase.
+  With `order="raster"` a group is one MB, in raster order: the schedule
+  of the CUDA kernel's MB rows. Each phase gathers one region per MB of
+  the group straight from raster planes (the regions of one phase do not
+  overlap), filters it and scatters it back.
+- the hand-written CUDA kernel in `csrc/deblock.cu` (the port of the
+  scan): one persistent launch per frame whose blocks walk MB rows and
+  wait on the row above (`deblock_cuda`).
+
+`deblock_frame(...)` dispatches on the planes' device: CPU tensors go to
+`deblock_ref`, CUDA tensors to the kernel. `deblock_frame.launches` counts
+kernel launches.
 
 The strengths come from `intra_strengths` (I frames), `compute_strengths`
 (P frames) or `compute_strengths_b` (B frames).
@@ -15,11 +28,15 @@ The strengths come from `intra_strengths` (I frames), `compute_strengths`
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..device import const
+from . import _cuda
 from . import tables as T
+from ._cuda import check_progress, check_tensor
 from .commit import _diag_mbs, n_diags
 
 # spec tables 8-16 / 8-17 (qp 0..51), as in x264_tpu/ops/deblock.py (a JAX
@@ -232,11 +249,24 @@ def _filter_v(plane, r0, c0, rows, n_edges, step, width, bs_at, qp_at,
     plane[ri, ci] = reg
 
 
-def deblock_frame(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
-                  b_off=0, chroma_qp_offset=0):
-    """Deblock a frame: y [H, W], u/v [H/2, W/2] uint8; bs_v/bs_h [mbh, mbw,
-    4 edges, 4 lines]; qp_mb [mbh, mbw] the decoder-carried QPs.
-    Returns filtered (y, u, v) uint8."""
+def _mb_groups(order, mbw, mbh, device):
+    """MB groups (xs, ys) in filter order: anti-diagonals or single MBs."""
+    if order == "diagonal":
+        return (_diag_mbs(d, mbw, mbh, device)
+                for d in range(n_diags(mbw, mbh)))
+    if order == "raster":
+        return ((torch.tensor([x], device=device),
+                 torch.tensor([y], device=device))
+                for y in range(mbh) for x in range(mbw))
+    raise ValueError(f"order {order!r}: 'diagonal' or 'raster'")
+
+
+def deblock_ref(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
+                b_off=0, chroma_qp_offset=0, order="diagonal"):
+    """Plain PyTorch deblock of a frame: y [H, W], u/v [H/2, W/2] uint8;
+    bs_v/bs_h [mbh, mbw, 4 edges, 4 lines]; qp_mb [mbh, mbw] the
+    decoder-carried QPs. `order`: "diagonal" or "raster" (see the module
+    note; both give the same planes). Returns filtered (y, u, v) uint8."""
     dev = y.device
     bs_v = bs_v.clone()
     bs_h = bs_h.clone()
@@ -253,8 +283,7 @@ def deblock_frame(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
         return out
 
     yp, up, vp = padded(y), padded(u), padded(v)
-    for d in range(n_diags(mbw, mbh)):
-        xs, ys = _diag_mbs(d, mbw, mbh, dev)
+    for xs, ys in _mb_groups(order, mbw, mbh, dev):
         q_cur = qp_mb[ys, xs]
         q_left = qp_mb[ys, (xs - 1).clamp(min=0)]
         q_top = qp_mb[(ys - 1).clamp(min=0), xs]
@@ -289,3 +318,112 @@ def deblock_frame(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
                       else cq_cur,
                       a_off, b_off, filter_lines_chroma)
     return tuple(p[_PAD:, _PAD:].to(torch.uint8) for p in (yp, up, vp))
+
+
+# ------------------------------------------------------------- CUDA kernel
+_LIB = {}
+
+
+class _DeblockArgs(ctypes.Structure):
+    """Mirror of `struct DeblockArgs` in csrc/deblock.cu."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "y", "u", "v", "dy", "du", "dv", "bs_v", "bs_h", "qp")] + [
+        (name, ctypes.c_int32) for name in (
+            "mbw", "mbh", "a_off", "b_off", "cqpo")]
+
+
+def _library():
+    if "lib" not in _LIB:
+        lib = _cuda.library()
+        lib.x264t_deblock_frame.restype = ctypes.c_int
+        lib.x264t_deblock_frame.argtypes = [
+            ctypes.POINTER(_DeblockArgs), ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p]
+        lib.x264t_deblock_args_size.restype = ctypes.c_int
+        lib.x264t_deblock_args_size.argtypes = []
+        if lib.x264t_deblock_args_size() != ctypes.sizeof(_DeblockArgs):
+            raise RuntimeError("DeblockArgs layout differs between "
+                               "deblock.cu and its binding")
+        _LIB["lib"] = lib
+    return _LIB["lib"]
+
+
+def grid_capacity(device) -> int:
+    """Blocks of the deblock kernel that `device` holds at once."""
+    return _cuda.capacity("deblock", device)
+
+
+def deblock_launch(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
+                   b_off=0, chroma_qp_offset=0, grid=None):
+    """One launch of the deblock kernel on the current stream, without
+    waiting for it. Inputs as deblock_ref's, on one CUDA device: uint8
+    planes and int32 strengths, contiguous, the planes 16-byte aligned;
+    qp_mb of any integer type (taken as int32, as deblock_ref takes it).
+    The outputs are new planes; the inputs are left as they are. Returns
+    ((y, u, v), prog): `prog` holds each MB row's finished-MB count and,
+    last, the error word; `check_progress(prog, mbw)` reads it once the
+    launch is done. `grid` caps the persistent blocks (default min(mbh,
+    what the card holds at once))."""
+    dev = y.device
+    if dev.type != "cuda":
+        raise ValueError(f"deblock_cuda takes CUDA tensors, got {dev}")
+    H, W = 16 * mbh, 16 * mbw
+    check_tensor(y, "y", (H, W), torch.uint8, dev)
+    check_tensor(u, "u", (H // 2, W // 2), torch.uint8, dev)
+    check_tensor(v, "v", (H // 2, W // 2), torch.uint8, dev)
+    check_tensor(bs_v, "bs_v", (mbh, mbw, 4, 4), torch.int32, dev)
+    check_tensor(bs_h, "bs_h", (mbh, mbw, 4, 4), torch.int32, dev)
+    if qp_mb.device != dev or tuple(qp_mb.shape) != (mbh, mbw) \
+            or qp_mb.dtype.is_floating_point:
+        raise ValueError(f"qp_mb: expected integer [{mbh}, {mbw}] on {dev}")
+    # a converted qp is freed on return: PyTorch's caching allocator hands
+    # its memory only to work queued after this launch on the same stream
+    qp = qp_mb.to(torch.int32).contiguous()
+    # the kernel reads and writes the planes' rows in 16- and 8-byte words
+    if any(t.data_ptr() % 16 for t in (y, u, v)):
+        raise ValueError("planes must be 16-byte aligned")
+    out = tuple(torch.empty_like(t) for t in (y, u, v))
+    rows_cap = min(mbh, grid_capacity(dev))
+    grid = rows_cap if grid is None else grid
+    if not 1 <= grid <= rows_cap:
+        raise ValueError(f"grid {grid} outside 1..{rows_cap}")
+    args = _DeblockArgs(*(t.data_ptr() for t in (y, u, v, *out, bs_v, bs_h,
+                                                  qp)),
+                        mbw, mbh, a_off, b_off, chroma_qp_offset)
+    prog = torch.zeros(mbh + 1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _library().x264t_deblock_frame(ctypes.byref(args), prog.data_ptr(),
+                                        grid, stream)
+    if rc != 0:
+        raise RuntimeError(f"deblock kernel launch failed: CUDA error {rc}")
+    deblock_frame.launches += 1
+    return out, prog
+
+
+def deblock_cuda(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0, b_off=0,
+                 chroma_qp_offset=0, grid=None):
+    """The CUDA deblock kernel (csrc/deblock.cu deblock_frame_kernel): one
+    launch per frame on the current stream, then one read-back of its
+    progress words that checks it finished (as commit_cuda does: one
+    host synchronisation per launch). Returns the filtered (y, u, v)."""
+    out, prog = deblock_launch(y, u, v, bs_v, bs_h, qp_mb, mbw=mbw, mbh=mbh,
+                               a_off=a_off, b_off=b_off,
+                               chroma_qp_offset=chroma_qp_offset, grid=grid)
+    check_progress(prog, mbw)
+    return out
+
+
+def deblock_frame(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
+                  b_off=0, chroma_qp_offset=0):
+    """Deblock a frame, with the outputs of x264_tpu's deblock_frame: y
+    [H, W], u/v [H/2, W/2] uint8; bs_v/bs_h [mbh, mbw, 4 edges, 4 lines];
+    qp_mb [mbh, mbw] the decoder-carried QPs. CUDA tensors go to the
+    kernel (one launch), CPU tensors to deblock_ref. Returns new filtered
+    (y, u, v) uint8 planes; `deblock_frame.launches` counts the kernel's
+    launches."""
+    fn = deblock_cuda if y.is_cuda else deblock_ref
+    return fn(y, u, v, bs_v, bs_h, qp_mb, mbw=mbw, mbh=mbh, a_off=a_off,
+              b_off=b_off, chroma_qp_offset=chroma_qp_offset)
+
+
+deblock_frame.launches = 0
