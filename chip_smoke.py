@@ -37,17 +37,21 @@ no result line):
      single launches; a 1080p frame as 4 bands of 17 MB rows (the mesh's
      I step) against commit_ref, timed; S = 1, 2, 4 1080p frames in one
      launch against S single launches, timed in turns; then the deblock
-     kernel (csrc/deblock.cu, one persistent launch per frame) against its
-     plain version (deblock_ref) on the card, bit-exact, its inputs left
-     as they were: intra and random strengths with per-MB QPs over 0-51
-     and a_off / b_off / chroma_qp_offset at -12, 0 and +12 at 64x48,
-     48x32, 16x16, 16x64 and 128x16 (one block walking every row too); at
-     1920x1088 the I frame with intra strengths (all blocks, and 7 blocks
-     that each walk ~10 MB rows), random strengths, the real P frame 1 at
-     preset medium (compute_strengths, two references) and the default
-     path's first B frame (compute_strengths_b), both as the encoder
-     called the deblock; the P and the I frame timed beside deblock_ref
-     and their bounds;
+     kernel (csrc/deblock.cu, one persistent launch per frame, blocks of
+     several MB rows in the phased schedule) against its plain version
+     (deblock_ref) on the card, bit-exact, its inputs left as they were:
+     intra and random strengths with per-MB QPs over 0-51 and a_off /
+     b_off / chroma_qp_offset at -12, 0 and +12 at 64x48, 48x32, 16x16,
+     16x64, 128x16, 16x80, 16x32 and 32x208 (one block walking every band
+     too); at 1920x1088 the I frame with intra strengths (all blocks, and
+     7 blocks that each walk several bands), random strengths, the real P
+     frame 1 at preset medium (compute_strengths, two references) and the
+     default path's first B frame (compute_strengths_b), both as the
+     encoder called the deblock; the P and the I frame timed in turns
+     with the kernel, the first port's kernel (one warp per MB row) and
+     the kernel at 1, 2, 4 and 8 MB rows per block, each output equal to
+     deblock_ref's, beside deblock_ref, their chains of MB steps and
+     their bounds;
   3. in a pool of worker processes (each with its own CUDA context),
      beside the decoders that the cases ask for: encode a 3-frame 64x48
      all-intra clip and a 5-frame 64x48 IPPP clip
@@ -73,8 +77,9 @@ no result line):
      decoding each intra band coded
      as a frame of its own (refdec decodes no multi-slice stream); and the
      CPU encodes of the timed paths' first frames (phases 4, 7, 8, 9, 10);
-     and the deblock kernel on a frame whose MB rows outnumber the blocks
-     the card holds at once (2 MBs wide) against deblock_ref on the CPU;
+     and the deblock kernel on a frame whose bands of MB rows outnumber
+     the blocks the card holds at once (2 MBs wide) against deblock_ref on
+     the CPU;
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernels' launch counts reset
@@ -861,6 +866,8 @@ def batched_phase(torch, C, dev, rng, clip, enc_big, qp_i, cap):
 # counted only for lines whose strength is not 0, as this run's data needs
 OPS_PER_LUMA_LINE = 60
 OPS_PER_CHROMA_LINE = 30
+# MB rows per block timed beside the kernel's own (deblock_launch_rows)
+ROWS_TRIED = (1, 2, 4, 8)
 
 
 def deblock_bound(args, kw):
@@ -883,6 +890,11 @@ def deblock_bound(args, kw):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def planes_err(ref, got):
+    """Largest |ref - got| over the planes of two (y, u, v)."""
+    return max(int((r.int() - g.int()).abs().max()) for r, g in zip(ref, got))
 
 
 def capture_calls(module, name, calls, limit=1):
@@ -924,15 +936,19 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
     card, tolerance 0 (every output is an integer), inputs left as they
     were: intra and random strengths with per-MB QPs over 0-51 (both ends
     present) and a_off / b_off / cqpo at -12 / 12 / -12, 0 and 12 / -12 /
-    12 at 64x48, 48x32, 16x16, 16x64 and 128x16 (at offsets 0 also one
-    block walking every row); at 1920x1088 the I frame's reconstruction
-    (phase 2's commit) with intra strengths, with all blocks and with 7
-    (each walks ~10 MB rows), random strengths, and the real calls that
-    the encoder made: P frame 1 at preset medium (compute_strengths, two
+    12 at 64x48, 48x32, 16x16, 16x64, 128x16, 16x80, 16x32 and 32x208
+    (fewer MB rows than a band, part bands, whole bands; at offsets 0 also
+    one block walking every band); at 1920x1088 the I frame's
+    reconstruction (phase 2's commit) with intra strengths, with all
+    blocks and with 7, random strengths, and the real calls that the
+    encoder made: P frame 1 at preset medium (compute_strengths, two
     references) and the default path's first B frame
     (compute_strengths_b). Then the real P call and the I frame timed
-    (CUDA events, 2 x 20 launches after 3) beside deblock_ref (one run)
-    and their bounds. Returns what the report reads."""
+    (CUDA events, 2 x 20 launches after 3, in turns) with the kernel, the
+    first port's kernel (deblock_launch_rowwarp) and the kernel at each
+    band height of ROWS_TRIED (deblock_launch_rows; each output equal to
+    deblock_ref's), beside deblock_ref (one run) and their bounds.
+    Returns what the report reads."""
     import numpy as np
     worst = 0
 
@@ -945,8 +961,7 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
         changed = sum(int((r != a).sum()) for r, a in zip(box[0], args[:3]))
         for grid in grids:
             got = D.deblock_cuda(*args, grid=grid, **kw)
-            err = max(int((r.int() - g.int()).abs().max())
-                      for r, g in zip(box[0], got))
+            err = planes_err(box[0], got)
             kept = all(torch.equal(b, a) for b, a in zip(before, args))
             log(f"phase 2 deblock kernel vs deblock_ref {label}"
                 f"{'' if grid is None else f', {grid} block(s)'}: "
@@ -956,9 +971,10 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
                 fail(f"deblock kernel disagrees with deblock_ref or wrote "
                      f"its inputs ({label}, grid {grid})")
             worst = max(worst, err)
-        return ref_ms
+        return ref_ms, box[0]
 
-    for w, h in ((64, 48), (48, 32), (16, 16), (16, 64), (128, 16)):
+    for w, h in ((64, 48), (48, 32), (16, 16), (16, 64), (128, 16),
+                 (16, 80), (16, 32), (32, 208)):
         mbw, mbh = w // 16, h // 16
         for kind in ("intra", "random"):
             for off in (-12, 0, 12):
@@ -985,8 +1001,9 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
         *D.intra_strengths(mbw, mbh, dev), c_args[5]]
     i_kw = dict(mbw=mbw, mbh=mbh)
     size = f"{16 * mbw}x{16 * mbh}"
-    i_plain = check(f"{size} I frame (phase 2's commit), intra strengths",
-                    i_args, i_kw, grids=(None, min(7, mbh)))
+    i_plain, i_ref = check(f"{size} I frame (phase 2's commit), intra "
+                           f"strengths", i_args, i_kw,
+                           grids=(None, min(7, -(-mbh // D.band_rows()))))
     qp = torch.from_numpy(rng.integers(0, 52, (mbh, mbw)).astype(np.int32))
     check(f"{size} random strengths, QP 0-51, offsets 12/-12/12",
           [*blocky_frame(torch, 16 * mbw, 16 * mbh, 3, dev),
@@ -995,37 +1012,76 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
            qp.to(dev)],
           dict(mbw=mbw, mbh=mbh, a_off=12, b_off=-12, chroma_qp_offset=12))
     p_args, p_kw = p_call
-    p_plain = check(f"{size} P frame 1 at preset medium "
-                    f"(compute_strengths, two references)", p_args, p_kw)
+    p_plain, p_ref = check(f"{size} P frame 1 at preset medium "
+                           f"(compute_strengths, two references)", p_args,
+                           p_kw)
     b_args, b_kw = b_call
     check(f"{size} B frame of the default path (compute_strengths_b)",
           b_args, b_kw)
 
-    out = {"worst": worst, "capacity": D.grid_capacity(dev),
-           "chain_steps": mbw + 2 * (mbh - 1)}
-    for key, args, kw, plain in (("p", p_args, p_kw, p_plain),
-                                 ("i", i_args, i_kw, i_plain)):
-        progs = []
+    rows = D.band_rows()
+    out = {"worst": worst, "capacity": D.grid_capacity(dev), "rows": rows,
+           "chain_steps": mbw + mbh - 1,
+           "earlier_chain_steps": mbw + 2 * (mbh - 1)}
+    kernels = {"kernel": (D.deblock_launch, {}, False),
+               "rowwarp": (D.deblock_launch_rowwarp, {}, True),
+               **{f"rows {r}": (D.deblock_launch_rows, {"rows": r}, False)
+                  for r in ROWS_TRIED}}
+    for key, args, kw, plain, ref in (("p", p_args, p_kw, p_plain, p_ref),
+                                      ("i", i_args, i_kw, i_plain, i_ref)):
+        runs, progs = {name: [] for name in kernels}, []
+        for name, (fn, extra, rowwarp) in kernels.items():
+            got = fn(*args, **kw, **extra)
+            D.check_launch(got[1], kw["mbw"], rowwarp)
+            err = planes_err(ref, got[0])
+            if err != 0:
+                fail(f"deblock {name} on the {size} {key.upper()} frame: "
+                     f"max_abs_err {err} against deblock_ref")
 
-        def run():
-            progs.append(D.deblock_launch(*args, **kw)[1])
+            def run(fn=fn, extra=extra, rowwarp=rowwarp):
+                progs.append((fn(*args, **kw, **extra)[1], rowwarp))
 
-        cuda_ms(torch, run, 3)                   # warm-up
-        runs = [cuda_ms(torch, run, 20) for _ in range(2)]
-        for prog in progs:
-            D.check_progress(prog, kw["mbw"])
+            cuda_ms(torch, run, 3)                   # warm-up
+        for turn in range(2):                       # in turns, then back
+            for name in (list(kernels) if turn == 0 else
+                         list(reversed(kernels))):
+                fn, extra, rowwarp = kernels[name]
+                runs[name].append(cuda_ms(
+                    torch, lambda: progs.append((fn(*args, **kw, **extra)[1],
+                                                 rowwarp)), 20))
+        for prog, rowwarp in progs:
+            D.check_launch(prog, kw["mbw"], rowwarp)
         bound_ms, bound_by, nbytes, ops = deblock_bound(args, kw)
-        ms = sum(runs) / len(runs)
-        out[key] = {"ms": ms, "runs": runs, "plain_ms": plain,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "bytes": nbytes, "ops": ops,
-                    "us_per_chain_step": ms * 1e3 / out["chain_steps"]}
+        ms = {name: sum(r) / len(r) for name, r in runs.items()}
+        out[key] = {"ms": ms["kernel"], "runs": runs["kernel"],
+                    "earlier_ms": ms["rowwarp"],
+                    "earlier_runs": runs["rowwarp"],
+                    "rows_ms": {r: ms[f"rows {r}"] for r in ROWS_TRIED},
+                    "plain_ms": plain, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "ops": ops,
+                    "us_per_chain_step": ms["kernel"] * 1e3
+                    / out["chain_steps"],
+                    "earlier_us_per_chain_step": ms["rowwarp"] * 1e3
+                    / out["earlier_chain_steps"]}
+        o = out[key]
         log(f"phase 2 deblock kernel per {size} {key.upper()} frame (CUDA "
-            f"events, 20 runs each): {runs[0]:.4f} / {runs[1]:.4f} ms; "
-            f"deblock_ref {plain:.1f} ms (1 run); bound {bound_ms * 1e3:.3f} "
-            f"us by {bound_by} ({nbytes} bytes, {ops} integer ops); "
-            f"{out['chain_steps']} MB steps in the dependency chain: "
-            f"{out[key]['us_per_chain_step']:.3f} us each")
+            f"events, 20 runs each, in turns): {rows} MB rows per block "
+            f"{runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f} ms, "
+            f"{out['chain_steps']} MB steps in the chain: "
+            f"{o['us_per_chain_step']:.3f} us each; the first port's "
+            f"kernel {runs['rowwarp'][0]:.4f} / {runs['rowwarp'][1]:.4f} ms, "
+            f"{out['earlier_chain_steps']} steps: "
+            f"{o['earlier_us_per_chain_step']:.3f} us each; MB rows per "
+            f"block " + ", ".join(
+                f"{r}: {runs[f'rows {r}'][0]:.4f} / "
+                f"{runs[f'rows {r}'][1]:.4f} ms" for r in ROWS_TRIED)
+            + f"; deblock_ref {plain:.1f} ms (1 run); bound "
+            f"{bound_ms * 1e3:.3f} us by {bound_by} ({nbytes} bytes, {ops} "
+            f"integer ops)")
+        if o["ms"] >= o["earlier_ms"]:
+            fail(f"the deblock kernel ({o['ms']:.4f} ms) is not faster than "
+                 f"the first port's ({o['earlier_ms']:.4f} ms) on the "
+                 f"{size} {key.upper()} frame")
     return out
 
 
@@ -1381,18 +1437,20 @@ def mesh_case(dev_name):
 
 
 def deblock_tall_case(dev_name):
-    """The deblock kernel on a frame whose MB rows outnumber the blocks
-    that the card holds at once (2 MBs wide, capacity + 5 MB rows, so some
-    blocks walk two rows) against deblock_ref on the CPU, bit-exact: random
-    strengths, QPs over 0-51. The plain version takes about a minute here,
-    which is why it runs in phase 3's pool. On the CPU (a rehearsal) the
-    frame has 13 rows and deblock_frame is deblock_ref."""
+    """The deblock kernel on a frame whose bands of MB rows outnumber the
+    blocks that the card holds at once (2 MBs wide, capacity + 2 bands,
+    the last a part band, so some blocks walk two bands) against
+    deblock_ref on the CPU, bit-exact: random strengths, QPs over 0-51.
+    The plain version takes tens of seconds here, which is why it runs in
+    phase 3's pool. On the CPU (a rehearsal) the frame has 13 rows and
+    deblock_frame is deblock_ref."""
     import numpy as np
     import torch
     from x264_tpu_torch.ops import deblock as D
     dev, cpu = torch.device(dev_name), torch.device("cpu")
-    cap = D.grid_capacity(dev) if dev.type == "cuda" else 8
-    mbw, mbh = 2, cap + 5
+    cap, rows = ((D.grid_capacity(dev), D.band_rows())
+                 if dev.type == "cuda" else (2, 4))
+    mbw, mbh = 2, rows * (cap + 1) + 1
     rng = np.random.default_rng(11)
     inputs = blocky_frame(torch, 16 * mbw, 16 * mbh, 11, cpu) + [
         torch.from_numpy(rng.integers(0, 5, (mbh, mbw, 4, 4))
@@ -1412,8 +1470,9 @@ def deblock_tall_case(dev_name):
              f"{err}, {launches} launches")
     return {"log": [
         f"phase 3 deblock kernel vs deblock_ref (CPU, {ref_s:.1f} s) "
-        f"{16 * mbw}x{16 * mbh}: {mbh} MB rows on {cap} co-resident blocks "
-        f"in {launches} launch: max_abs_err {err} (tolerance 0)"]}
+        f"{16 * mbw}x{16 * mbh}: {mbh} MB rows, {-(-mbh // rows)} bands of "
+        f"{rows} on {cap} co-resident blocks in {launches} launch: "
+        f"max_abs_err {err} (tolerance 0)"]}
 
 
 def cpu_prefix(key, params, frames):
@@ -1760,7 +1819,8 @@ def main():
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
         f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu and csrc/deblock.cu, "
         f"one nvcc each, started together); frame kernel: {cap} co-resident "
-        f"blocks; deblock kernel: {D.grid_capacity(dev)}")
+        f"blocks; deblock kernel: {D.grid_capacity(dev)} blocks of "
+        f"{D.band_rows()} MB rows")
     th.join()
     if "error" in cabac_build:
         fail(f"csrc/cabac.cpp did not build or load: {cabac_build['error']}")
@@ -2231,15 +2291,23 @@ def main():
         "source": "x264_tpu_torch/csrc/deblock.cu",
         "replaces": "x264_tpu/ops/deblock.py:263 (jnp lax.scan)",
         "launches": deblocks_p, "max_abs_err": dbk["worst"],
-        "ms": dbk["p"]["ms"], "plain_ms": dbk["p"]["plain_ms"],
+        "ms": dbk["p"]["ms"], "earlier_ms": dbk["p"]["earlier_ms"],
+        "plain_ms": dbk["p"]["plain_ms"],
         "bound_ms": dbk["p"]["bound_ms"], "bound_by": dbk["p"]["bound_by"],
         "library_ms": None,
         "shape": "P frame 1 of the 1080p clip at preset medium "
                  "(compute_strengths, two references)",
-        "i_frame_ms": dbk["i"]["ms"], "i_frame_plain_ms": dbk["i"]["plain_ms"],
+        "i_frame_ms": dbk["i"]["ms"],
+        "i_frame_earlier_ms": dbk["i"]["earlier_ms"],
+        "i_frame_plain_ms": dbk["i"]["plain_ms"],
         "i_frame_bound_ms": dbk["i"]["bound_ms"],
         "i_frame_bound_by": dbk["i"]["bound_by"],
         "chain_steps": dbk["chain_steps"],
+        "earlier_chain_steps": dbk["earlier_chain_steps"],
+        "us_per_chain_step": dbk["p"]["us_per_chain_step"],
+        "earlier_us_per_chain_step": dbk["p"]["earlier_us_per_chain_step"],
+        "mb_rows_per_block": dbk["rows"],
+        "rows_tried_ms": {"p": dbk["p"]["rows_ms"], "i": dbk["i"]["rows_ms"]},
         "co_resident_blocks": dbk["capacity"],
         "launches_all_intra_path": deblocks,
         "launches_cabac_path": deblocks_c,

@@ -1,9 +1,11 @@
 """The port's deblock (x264_tpu_torch.ops.deblock) against x264_tpu's
 `deblock_frame` (a jnp lax.scan, run on the CPU): the same numpy inputs
 from a seed go through both, with tolerance 0 (every output is an
-integer). `deblock_ref` is held in both of its orders: "diagonal"
-(x264_tpu's schedule) and "raster" (the MB order of the CUDA kernel's
-rows). The strengths come from the port's `intra_strengths`,
+integer). `deblock_ref` is held in its three orders: "diagonal"
+(x264_tpu's schedule), "raster" (the MB order of the first CUDA kernel's
+rows) and "phased" (the half-steps of the CUDA kernel, whose schedule is
+also checked pixel by pixel against raster order). The strengths come
+from the port's `intra_strengths`,
 `compute_strengths` and `compute_strengths_b` (held against x264_tpu's in
 test_torch_inter.py and test_torch_bframe.py) or are random."""
 
@@ -40,6 +42,9 @@ CASES = [
     ("16x64_b_lo", 16, 64, "b", (-12, 12, -12), "mid"),
     ("128x16_random_hi", 128, 16, "random", (12, -12, 12), "full"),
     ("128x16_p2_mb_hi", 128, 16, "p2_mb", (12, -12, 12), "mid"),
+    # 13 MB rows: more than one band of the kernel and a multiple of none
+    # of the band heights it was timed with (1 aside)
+    ("32x208_random_hi", 32, 208, "random", (12, -12, 12), "full"),
 ]
 _BY_NAME = {c[0]: c for c in CASES}
 
@@ -115,7 +120,7 @@ def _torch_inputs(inputs, intra):
     return ts
 
 
-@pytest.mark.parametrize("order", ["diagonal", "raster"])
+@pytest.mark.parametrize("order", ["diagonal", "raster", "phased"])
 @pytest.mark.parametrize("name", [c[0] for c in CASES])
 def test_deblock_ref_matches_jax(name, order):
     inputs, kw, want = _case(name)
@@ -145,6 +150,53 @@ def test_deblock_frame_on_cpu_is_the_ref(name):
         assert torch.equal(b, t)
 
 
+def _footprint(phase, x, y):
+    """(read, written) luma rectangles (r0, r1, c0, c1) of one MB phase: a
+    line filter reads p3..q3 and writes at most p2..q2 across each edge.
+    Each chroma footprint is the luma one halved, so its conflicts are a
+    subset of these."""
+    if phase == "v":
+        return ((16 * y, 16 * y + 16, 16 * x - 4, 16 * x + 16),
+                (16 * y, 16 * y + 16, 16 * x - 3, 16 * x + 15))
+    return ((16 * y - 4, 16 * y + 16, 16 * x, 16 * x + 16),
+            (16 * y - 3, 16 * y + 15, 16 * x, 16 * x + 16))
+
+
+def _overlap(a, b):
+    return a[0] < b[1] and b[0] < a[1] and a[2] < b[3] and b[2] < a[3]
+
+
+@pytest.mark.parametrize("mbw, mbh", [(1, 1), (1, 5), (5, 1), (6, 5),
+                                      (4, 9)])
+def test_phased_schedule_keeps_raster_order(mbw, mbh):
+    """phased_steps has 2 (mbw + mbh - 1) half-steps that run every MB's V
+    and H phase once; inside a step no pixel that one phase writes is read
+    or written by another, and any two phases that share a pixel one of
+    them writes run in raster order (MB by MB, V before H)."""
+    steps = tdeblock.phased_steps(mbw, mbh)
+    assert len(steps) == 2 * (mbw + mbh - 1)
+    step_of = {}
+    for s, (phase, xs, ys) in enumerate(steps):
+        assert phase in ("v", "h") and len(xs) == len(ys) > 0
+        for x, y in zip(xs, ys):
+            assert (phase, x, y) not in step_of
+            step_of[(phase, x, y)] = s
+    assert len(step_of) == 2 * mbw * mbh
+
+    def raster(phase, x, y):
+        return 2 * (y * mbw + x) + (phase == "h")
+
+    ops = list(step_of)
+    for i, a in enumerate(ops):
+        read_a, wrote_a = _footprint(*a)
+        for b in ops[i + 1:]:
+            read_b, wrote_b = _footprint(*b)
+            if _overlap(wrote_a, read_b) or _overlap(wrote_b, read_a):
+                assert step_of[a] != step_of[b], (a, b)
+                assert (step_of[a] < step_of[b]) == \
+                    (raster(*a) < raster(*b)), (a, b)
+
+
 def test_deblock_ref_rejects_an_unknown_order():
     inputs, kw, _ = _case("16x16_intra_lo")
     with pytest.raises(ValueError, match="order"):
@@ -163,10 +215,11 @@ def cuda_device():
 @pytest.mark.parametrize("grid", [None, 1])
 @pytest.mark.parametrize("name", ["64x48_intra", "64x48_b",
                                   "48x32_random_hi", "128x16_p2_mb_hi",
-                                  "16x64_random_lo"])
+                                  "16x64_random_lo", "32x208_random_hi"])
 def test_deblock_kernel_matches_ref(cuda_device, name, grid):
     """deblock_cuda (one launch, all blocks or one block walking every
-    row) against deblock_ref on the same inputs, tolerance 0."""
+    band; frames of fewer MB rows than a band, of whole bands and of a
+    part band) against deblock_ref on the same inputs, tolerance 0."""
     inputs, kw, _ = _case(name)
     intra = _BY_NAME[name][3] == "intra"
     want = tdeblock.deblock_ref(*_torch_inputs(inputs, intra), **kw)

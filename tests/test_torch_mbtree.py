@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 from test_inter_e2e import moving_frames
-from test_torch_bframe import encode_all
 from test_torch_inter import _eq, _t
+from torch_parity import encode_stream
 from x264_tpu import param_default_preset as jax_preset
 from x264_tpu.encoder import frame_encode as jframe_encode
 from x264_tpu.encoder import lookahead as jlook
@@ -203,7 +203,7 @@ def default_clip():
             return nals, out
 
         enc.encode = counting
-        stream, outs = encode_all(enc, frames)
+        stream, outs = encode_stream(enc, frames)
         runs.append(dict(enc=enc, tree=tree, stream=stream, outs=outs,
                          first_out=first_out[0]))
     return runs
@@ -310,9 +310,9 @@ def test_unported_options_still_name_their_roadmap_item(name):
     frames = moving_frames(3, 64, 48)
     if raises:
         with pytest.raises(NotImplementedError, match=raises):
-            encode_all(Encoder(p, device="cpu"), frames)
+            encode_stream(Encoder(p, device="cpu"), frames)
         return
-    stream, outs = encode_all(Encoder(p, device="cpu"), frames)
+    stream, outs = encode_stream(Encoder(p, device="cpu"), frames)
     assert len(outs) == 3
     if name == "pir":           # no B frames and no IDR after the first
         assert [o.i_type for o in outs][1:] == [TYPE_P] * 2
@@ -331,6 +331,6 @@ def test_default_encode_with_exhaustive_search_runs(me_method):
     encode ran the exhaustive search all along."""
     p = default_params(param_default_preset)
     p.analyse.me_method = me_method
-    stream, outs = encode_all(Encoder(p, device="cpu"),
+    stream, outs = encode_stream(Encoder(p, device="cpu"),
                               moving_frames(5, 64, 48))
     assert len(outs) == 5 and len(stream) > 100

@@ -1,9 +1,9 @@
 """Helpers of the clip tests that run one configuration through both
 Encoders, x264_tpu's and the port's (tests/test_torch_presets*.py,
-test_torch_options.py, test_torch_recovery.py): encode a clip, compare
-what came out, decode the port's stream with tools/refdec.py; and of the
-command-line tests (tests/test_torch_cli*.py): write a y4m clip, run both
-CLIs on it."""
+test_torch_options.py, test_torch_recovery.py, test_torch_bframe_clips.py,
+test_torch_mbtree.py): encode a clip, compare what came out, decode the
+port's stream with tools/refdec.py; and of the command-line tests
+(tests/test_torch_cli*.py): write a y4m clip, run both CLIs on it."""
 
 import os
 import sys
@@ -45,6 +45,39 @@ def ippp(preset, w=64, h=48, **over):
             obj = getattr(obj, name)
         setattr(obj, last, val)
     return p
+
+
+def bframe_params(preset, w=64, h=48, *, cabac=False, bframe=2, qp=26,
+                  me_method=None, scenecut=None):
+    """Preset medium at CQP with a fixed B run (bframe_adaptive 0)."""
+    p = preset("medium")
+    p.width, p.height = w, h
+    p.cabac = cabac
+    p.bframe = bframe
+    p.bframe_adaptive = 0
+    p.rc.rc_method = 0
+    p.rc.qp_constant = qp
+    p.full_recon = True
+    if me_method is not None:
+        p.analyse.me_method = me_method
+    if scenecut is not None:
+        p.scenecut_threshold = scenecut
+    return p
+
+
+def encode_stream(enc, frames):
+    """Headers + every frame, drained -> (stream, [PicOut])."""
+    stream = annexb_bytes(enc.headers())
+    outs = []
+    for i, f in enumerate(frames + [None]):
+        while True:
+            nals, out = enc.encode(None if f is None else Picture(f, pts=i))
+            stream += annexb_bytes(nals)
+            if out is not None:
+                outs.append(out)
+            if f is not None or out is None:
+                break
+    return stream, outs
 
 
 def encode_all(enc, frames, before=None):

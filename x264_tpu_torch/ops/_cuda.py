@@ -124,13 +124,14 @@ def check_tensor(t, name, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def check_progress(prog, mbw):
+def check_progress(prog, done):
     """Raise unless the persistent launch that filled `prog` (each MB
-    row's finished-MB count, then the error word) finished every row
-    (synchronises with it)."""
+    row's progress word, then the error word) finished every row: each
+    word reached `done` (mbw finished MBs for the commit kernel, 2 mbw
+    half-steps for the deblock kernel). Synchronises with the launch."""
     p = prog.cpu()
     if int(p[-1]) != 0:
         raise RuntimeError("kernel: a wavefront wait ran past its bound; the "
                            "frame is incomplete")
-    if int(p[:-1].min()) != mbw:
+    if int(p[:-1].min()) != done:
         raise RuntimeError("kernel: MB rows left unfinished")

@@ -4,19 +4,24 @@ Two versions of one function, with the outputs of x264_tpu's
 `deblock_frame` (a jnp `lax.scan` over the MB anti-diagonals):
 
 - `deblock_ref`, plain PyTorch, on any device. It filters groups of MBs
-  in an order that reproduces the spec's raster MB order: within a group,
-  every MB's vertical edges first, then every MB's horizontal edges. With
-  `order="diagonal"` (the default, x264_tpu's schedule) a group is one
-  anti-diagonal d = x + y: V(x, y) needs its left MB final (diagonal
-  d-1); H(x, y) needs V(x, y) and its top MB, whose right neighbour
-  (x+1, y-1) is on diagonal d and filters its left edge in the V phase.
-  With `order="raster"` a group is one MB, in raster order: the schedule
-  of the CUDA kernel's MB rows. Each phase gathers one region per MB of
+  in an order that reproduces the spec's raster MB order. Each MB has a
+  V phase (its vertical edges) and an H phase (its horizontal edges).
+  With `order="diagonal"` (the default, x264_tpu's schedule) a group is
+  one anti-diagonal d = x + y, every MB's V phase first, then every MB's
+  H phase: V(x, y) needs its left MB final (diagonal d-1); H(x, y) needs
+  V(x, y) and its top MB, whose right neighbour (x+1, y-1) is on diagonal
+  d and filters its left edge in the V phase. With `order="raster"` a
+  group is one MB, in raster order: the schedule of the first CUDA
+  kernel's MB rows. With `order="phased"` a group is one half-step of
+  the CUDA kernel (`phased_steps`): at step s row y works on k = s - 2y,
+  MB k // 2, in phase V if k is even and H if k is odd, so every MB of a
+  step is in the same phase. Each phase gathers one region per MB of
   the group straight from raster planes (the regions of one phase do not
   overlap), filters it and scatters it back.
 - the hand-written CUDA kernel in `csrc/deblock.cu` (the port of the
-  scan): one persistent launch per frame whose blocks walk MB rows and
-  wait on the row above (`deblock_cuda`).
+  scan): one persistent launch per frame whose blocks walk bands of
+  `band_rows()` MB rows, one warp a row, in the phased schedule
+  (`deblock_cuda`).
 
 `deblock_frame(...)` dispatches on the planes' device: CPU tensors go to
 `deblock_ref`, CUDA tensors to the kernel. `deblock_frame.launches` counts
@@ -249,24 +254,47 @@ def _filter_v(plane, r0, c0, rows, n_edges, step, width, bs_at, qp_at,
     plane[ri, ci] = reg
 
 
+def phased_steps(mbw, mbh):
+    """The CUDA kernel's schedule: 2 (mbw + mbh - 1) half-steps, each a
+    list (phase, xs, ys) of the MBs that run it side by side. At step s
+    row y works on k = s - 2y (0 <= k < 2 mbw): MB x = k // 2 in phase
+    "v" if k is even, "h" if odd (k and s have the same parity). So
+    V(x, y) runs beside V(x + 1, y - 1) (disjoint rows) and H(x, y) beside
+    H(x + 1, y - 1) (disjoint columns), and H(x, y) one step after
+    V(x + 1, y - 1), which rewrites the top MB's columns 13-15."""
+    steps = []
+    for s in range(2 * (mbw + mbh - 1)):
+        ys = [y for y in range(mbh) if 0 <= s - 2 * y < 2 * mbw]
+        steps.append(("vh"[s % 2], [(s - 2 * y) // 2 for y in ys], ys))
+    return steps
+
+
 def _mb_groups(order, mbw, mbh, device):
-    """MB groups (xs, ys) in filter order: anti-diagonals or single MBs."""
+    """MB groups (phases, xs, ys) in filter order: anti-diagonals or
+    single MBs in both phases ("vh"), or half-steps in one ("v" / "h")."""
+    def tensors(xs, ys):
+        return (torch.tensor(xs, device=device),
+                torch.tensor(ys, device=device))
+
     if order == "diagonal":
-        return (_diag_mbs(d, mbw, mbh, device)
+        return (("vh", *_diag_mbs(d, mbw, mbh, device))
                 for d in range(n_diags(mbw, mbh)))
     if order == "raster":
-        return ((torch.tensor([x], device=device),
-                 torch.tensor([y], device=device))
+        return (("vh", *tensors([x], [y]))
                 for y in range(mbh) for x in range(mbw))
-    raise ValueError(f"order {order!r}: 'diagonal' or 'raster'")
+    if order == "phased":
+        return ((phase, *tensors(xs, ys))
+                for phase, xs, ys in phased_steps(mbw, mbh))
+    raise ValueError(f"order {order!r}: 'diagonal', 'raster' or 'phased'")
 
 
 def deblock_ref(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
                 b_off=0, chroma_qp_offset=0, order="diagonal"):
     """Plain PyTorch deblock of a frame: y [H, W], u/v [H/2, W/2] uint8;
     bs_v/bs_h [mbh, mbw, 4 edges, 4 lines]; qp_mb [mbh, mbw] the
-    decoder-carried QPs. `order`: "diagonal" or "raster" (see the module
-    note; both give the same planes). Returns filtered (y, u, v) uint8."""
+    decoder-carried QPs. `order`: "diagonal", "raster" or "phased" (see
+    the module note; all give the same planes). Returns filtered (y, u, v)
+    uint8."""
     dev = y.device
     bs_v = bs_v.clone()
     bs_h = bs_h.clone()
@@ -283,41 +311,53 @@ def deblock_ref(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
         return out
 
     yp, up, vp = padded(y), padded(u), padded(v)
-    for xs, ys in _mb_groups(order, mbw, mbh, dev):
-        q_cur = qp_mb[ys, xs]
-        q_left = qp_mb[ys, (xs - 1).clamp(min=0)]
-        q_top = qp_mb[(ys - 1).clamp(min=0), xs]
-        cq_cur = cqp_mb[ys, xs]
-        cq_left = cqp_mb[ys, (xs - 1).clamp(min=0)]
-        cq_top = cqp_mb[(ys - 1).clamp(min=0), xs]
-        bsv = bs_v[ys, xs]                   # [L, 4 edges, 4 lines]
-        bsh = bs_h[ys, xs]
-
-        # ---- luma V edges, then H edges (as transposed V edges) ----
-        _filter_v(yp, ys * 16 + _PAD, xs * 16, 16, 4, 4, 20,
-                  lambda e: bsv[:, e].repeat_interleave(4, 1),
-                  lambda e: (((q_left if e == 0 else q_cur) + q_cur + 1)
-                             >> 1),
-                  a_off, b_off, filter_lines_luma)
-        ypt = yp.t()
-        _filter_v(ypt, xs * 16 + _PAD, ys * 16, 16, 4, 4, 20,
-                  lambda e: bsh[:, e].repeat_interleave(4, 1),
-                  lambda e: (q_top + q_cur + 1) >> 1 if e == 0 else q_cur,
-                  a_off, b_off, filter_lines_luma)
-
-        # ---- chroma: edges at chroma 0 (luma edge 0) and 4 (luma 2) ----
-        for cp in (up, vp):
-            _filter_v(cp, ys * 8 + _PAD, xs * 8 + _PAD - 2, 8, 2, 4, 10,
-                      lambda e: bsv[:, 2 * e].repeat_interleave(2, 1),
-                      lambda e: (((cq_left if e == 0 else cq_cur) + cq_cur
-                                  + 1) >> 1),
-                      a_off, b_off, filter_lines_chroma)
-            _filter_v(cp.t(), xs * 8 + _PAD, ys * 8 + _PAD - 2, 8, 2, 4, 10,
-                      lambda e: bsh[:, 2 * e].repeat_interleave(2, 1),
-                      lambda e: (cq_top + cq_cur + 1) >> 1 if e == 0
-                      else cq_cur,
-                      a_off, b_off, filter_lines_chroma)
+    for phases, xs, ys in _mb_groups(order, mbw, mbh, dev):
+        if "v" in phases:
+            _v_phase(yp, up, vp, xs, ys, bs_v[ys, xs], qp_mb, cqp_mb,
+                     a_off, b_off)
+        if "h" in phases:
+            _h_phase(yp, up, vp, xs, ys, bs_h[ys, xs], qp_mb, cqp_mb,
+                     a_off, b_off)
     return tuple(p[_PAD:, _PAD:].to(torch.uint8) for p in (yp, up, vp))
+
+
+def _v_phase(yp, up, vp, xs, ys, bsv, qp_mb, cqp_mb, a_off, b_off):
+    """The V phase of MBs (xs, ys) on the padded planes, in place: the
+    vertical luma edges left to right, then chroma edges 0 and 4 (from
+    luma edges 0 and 2). bsv [L, 4 edges, 4 lines]."""
+    q_cur = qp_mb[ys, xs]
+    q_left = qp_mb[ys, (xs - 1).clamp(min=0)]
+    cq_cur = cqp_mb[ys, xs]
+    cq_left = cqp_mb[ys, (xs - 1).clamp(min=0)]
+    _filter_v(yp, ys * 16 + _PAD, xs * 16, 16, 4, 4, 20,
+              lambda e: bsv[:, e].repeat_interleave(4, 1),
+              lambda e: ((q_left if e == 0 else q_cur) + q_cur + 1) >> 1,
+              a_off, b_off, filter_lines_luma)
+    for cp in (up, vp):
+        _filter_v(cp, ys * 8 + _PAD, xs * 8 + _PAD - 2, 8, 2, 4, 10,
+                  lambda e: bsv[:, 2 * e].repeat_interleave(2, 1),
+                  lambda e: (((cq_left if e == 0 else cq_cur) + cq_cur + 1)
+                             >> 1),
+                  a_off, b_off, filter_lines_chroma)
+
+
+def _h_phase(yp, up, vp, xs, ys, bsh, qp_mb, cqp_mb, a_off, b_off):
+    """The H phase of MBs (xs, ys), in place: the horizontal edges top to
+    bottom, as vertical edges of the transposed planes."""
+    q_cur = qp_mb[ys, xs]
+    q_top = qp_mb[(ys - 1).clamp(min=0), xs]
+    cq_cur = cqp_mb[ys, xs]
+    cq_top = cqp_mb[(ys - 1).clamp(min=0), xs]
+    _filter_v(yp.t(), xs * 16 + _PAD, ys * 16, 16, 4, 4, 20,
+              lambda e: bsh[:, e].repeat_interleave(4, 1),
+              lambda e: (q_top + q_cur + 1) >> 1 if e == 0 else q_cur,
+              a_off, b_off, filter_lines_luma)
+    for cp in (up, vp):
+        _filter_v(cp.t(), xs * 8 + _PAD, ys * 8 + _PAD - 2, 8, 2, 4, 10,
+                  lambda e: bsh[:, 2 * e].repeat_interleave(2, 1),
+                  lambda e: (cq_top + cq_cur + 1) >> 1 if e == 0
+                  else cq_cur,
+                  a_off, b_off, filter_lines_chroma)
 
 
 # ------------------------------------------------------------- CUDA kernel
@@ -335,12 +375,15 @@ class _DeblockArgs(ctypes.Structure):
 def _library():
     if "lib" not in _LIB:
         lib = _cuda.library()
-        lib.x264t_deblock_frame.restype = ctypes.c_int
-        lib.x264t_deblock_frame.argtypes = [
-            ctypes.POINTER(_DeblockArgs), ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.x264t_deblock_args_size.restype = ctypes.c_int
-        lib.x264t_deblock_args_size.argtypes = []
+        launch = [ctypes.POINTER(_DeblockArgs), ctypes.c_void_p, ctypes.c_int]
+        for name, extra in (("frame", []), ("frame_rows", [ctypes.c_int]),
+                            ("frame_rowwarp", [])):
+            fn = getattr(lib, f"x264t_deblock_{name}")
+            fn.restype = ctypes.c_int
+            fn.argtypes = launch + extra + [ctypes.c_void_p]
+        for name in ("rows", "args_size"):
+            fn = getattr(lib, f"x264t_deblock_{name}")
+            fn.restype, fn.argtypes = ctypes.c_int, []
         if lib.x264t_deblock_args_size() != ctypes.sizeof(_DeblockArgs):
             raise RuntimeError("DeblockArgs layout differs between "
                                "deblock.cu and its binding")
@@ -348,22 +391,21 @@ def _library():
     return _LIB["lib"]
 
 
+def band_rows() -> int:
+    """MB rows per block of the deblock kernel (kRows in deblock.cu)."""
+    return _library().x264t_deblock_rows()
+
+
 def grid_capacity(device) -> int:
     """Blocks of the deblock kernel that `device` holds at once."""
     return _cuda.capacity("deblock", device)
 
 
-def deblock_launch(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
-                   b_off=0, chroma_qp_offset=0, grid=None):
-    """One launch of the deblock kernel on the current stream, without
-    waiting for it. Inputs as deblock_ref's, on one CUDA device: uint8
-    planes and int32 strengths, contiguous, the planes 16-byte aligned;
-    qp_mb of any integer type (taken as int32, as deblock_ref takes it).
-    The outputs are new planes; the inputs are left as they are. Returns
-    ((y, u, v), prog): `prog` holds each MB row's finished-MB count and,
-    last, the error word; `check_progress(prog, mbw)` reads it once the
-    launch is done. `grid` caps the persistent blocks (default min(mbh,
-    what the card holds at once))."""
+def _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh, a_off, b_off,
+             chroma_qp_offset):
+    """Check a launch's inputs and allocate its outputs and progress
+    words. Returns (args, outputs, prog, qp): qp is the int32 QP map the
+    args point at, held until the launch is queued."""
     dev = y.device
     if dev.type != "cuda":
         raise ValueError(f"deblock_cuda takes CUDA tensors, got {dev}")
@@ -379,25 +421,88 @@ def deblock_launch(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
     # a converted qp is freed on return: PyTorch's caching allocator hands
     # its memory only to work queued after this launch on the same stream
     qp = qp_mb.to(torch.int32).contiguous()
-    # the kernel reads and writes the planes' rows in 16- and 8-byte words
-    if any(t.data_ptr() % 16 for t in (y, u, v)):
-        raise ValueError("planes must be 16-byte aligned")
+    # the kernel reads the planes' rows and each MB's 16 strength words in
+    # 16-byte copies
+    if any(t.data_ptr() % 16 for t in (y, u, v, bs_v, bs_h)):
+        raise ValueError("planes and strengths must be 16-byte aligned")
     out = tuple(torch.empty_like(t) for t in (y, u, v))
-    rows_cap = min(mbh, grid_capacity(dev))
-    grid = rows_cap if grid is None else grid
-    if not 1 <= grid <= rows_cap:
-        raise ValueError(f"grid {grid} outside 1..{rows_cap}")
     args = _DeblockArgs(*(t.data_ptr() for t in (y, u, v, *out, bs_v, bs_h,
                                                   qp)),
                         mbw, mbh, a_off, b_off, chroma_qp_offset)
     prog = torch.zeros(mbh + 1, dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _library().x264t_deblock_frame(ctypes.byref(args), prog.data_ptr(),
-                                        grid, stream)
+    return args, out, prog, qp
+
+
+def _launched(rc):
     if rc != 0:
         raise RuntimeError(f"deblock kernel launch failed: CUDA error {rc}")
+
+
+def deblock_launch(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
+                   b_off=0, chroma_qp_offset=0, grid=None):
+    """One launch of the deblock kernel on the current stream, without
+    waiting for it. Inputs as deblock_ref's, on one CUDA device: uint8
+    planes and int32 strengths, contiguous and 16-byte aligned; qp_mb of
+    any integer type (taken as int32, as deblock_ref takes it). The
+    outputs are new planes; the inputs are left as they are. Returns
+    ((y, u, v), prog): `prog` holds each MB row's progress and, last, the
+    error word; `check_launch(prog, mbw)` reads it once the launch is
+    done. `grid` caps the persistent blocks, each a band of band_rows()
+    MB rows (default: one per band, as many as the card holds at once)."""
+    args, out, prog, _qp = _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh,
+                                    a_off, b_off, chroma_qp_offset)
+    bands = -(-mbh // band_rows())
+    cap = min(bands, grid_capacity(y.device))
+    grid = cap if grid is None else grid
+    if not 1 <= grid <= cap:
+        raise ValueError(f"grid {grid} outside 1..{cap}")
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    _launched(_library().x264t_deblock_frame(ctypes.byref(args),
+                                             prog.data_ptr(), grid, stream))
     deblock_frame.launches += 1
     return out, prog
+
+
+def check_launch(prog, mbw, rowwarp=False):
+    """Raise unless the launch that filled `prog` finished every row (2 mbw
+    half-steps; mbw MBs for deblock_launch_rowwarp). Synchronises."""
+    check_progress(prog, mbw if rowwarp else 2 * mbw)
+
+
+def deblock_launch_rows(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, rows,
+                        a_off=0, b_off=0, chroma_qp_offset=0):
+    """The deblock kernel with `rows` (1, 2, 4 or 8) MB rows per block, one
+    block per band: off the main path, so that a run on the card can time
+    the band heights side by side. As deblock_launch otherwise;
+    `deblock_launch_rows.launches` counts its launches."""
+    args, out, prog, _qp = _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh,
+                                    a_off, b_off, chroma_qp_offset)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    _launched(_library().x264t_deblock_frame_rows(
+        ctypes.byref(args), prog.data_ptr(), -(-mbh // rows), rows, stream))
+    deblock_launch_rows.launches += 1
+    return out, prog
+
+
+def deblock_launch_rowwarp(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
+                           b_off=0, chroma_qp_offset=0):
+    """The first port's deblock kernel (deblock_frame_kernel_rowwarp: one
+    warp per MB row, a progress count per whole MB through global memory),
+    one block per row: off the main path, kept so that a run on the card
+    can time the two designs on the same inputs.
+    `deblock_launch_rowwarp.launches` counts its launches."""
+    args, out, prog, _qp = _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh,
+                                    a_off, b_off, chroma_qp_offset)
+    grid = min(mbh, _cuda.capacity("deblock_rowwarp", y.device))
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    _launched(_library().x264t_deblock_frame_rowwarp(
+        ctypes.byref(args), prog.data_ptr(), grid, stream))
+    deblock_launch_rowwarp.launches += 1
+    return out, prog
+
+
+deblock_launch_rows.launches = 0
+deblock_launch_rowwarp.launches = 0
 
 
 def deblock_cuda(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0, b_off=0,
@@ -409,7 +514,7 @@ def deblock_cuda(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0, b_off=0,
     out, prog = deblock_launch(y, u, v, bs_v, bs_h, qp_mb, mbw=mbw, mbh=mbh,
                                a_off=a_off, b_off=b_off,
                                chroma_qp_offset=chroma_qp_offset, grid=grid)
-    check_progress(prog, mbw)
+    check_launch(prog, mbw)
     return out
 
 
