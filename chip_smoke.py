@@ -51,7 +51,18 @@ no result line):
      with the kernel, the first port's kernel (one warp per MB row) and
      the kernel at 1, 2, 4 and 8 MB rows per block, each output equal to
      deblock_ref's, beside deblock_ref, their chains of MB steps and
-     their bounds;
+     their bounds; then the motion kernels (csrc/motion.cu: the seeded
+     search's half-res scan and refine, the ESA, the qpel refine) against
+     their plain versions (ops/motion.py lowres_scan_plain,
+     fullpel_plain, subpel_plain) and each public search through them
+     against its sequential plain version (*_ref), bit-exact, on 48x32
+     tie cases (flat, period-4 texture, lam 0 and 200, me_range 4, 16
+     and 24, the PIR cap; 1, 5 and 9 qpel lanes), on the real calls of
+     the 1080p clip's P frame 2 at preset medium (both references) and
+     of the default path's first B frame (both lists), and the ESA at
+     me_range 24 with every lane on P frame 2; each kernel timed on its
+     real 1080p inputs beside its plain version and its bound
+     (motion_phase);
   3. in a pool of worker processes (each with its own CUDA context),
      beside the decoders that the cases ask for: encode a 3-frame 64x48
      all-intra clip and a 5-frame 64x48 IPPP clip
@@ -79,7 +90,14 @@ no result line):
      CPU encodes of the timed paths' first frames (phases 4, 7, 8, 9, 10);
      and the deblock kernel on a frame whose bands of MB rows outnumber
      the blocks the card holds at once (2 MBs wide) against deblock_ref on
-     the CPU;
+     the CPU; and IPPP x3 at 640x360 with --me tesa at me_range 24 (the
+     ESA kernel at the presets' largest range, which must launch);
+  Every path of phases 4-10 also resets the motion kernels' launch counts
+  just before it runs and reads them just after: each must show launches
+  of exactly the kernels it searches with (none on the all-intra path;
+  the seeded search's two and the qpel refine on the P paths, the CLI
+  and the farm; the ESA and the qpel refine on the mesh's P step; all
+  four on the default path, whose B frames run the ESA).
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernels' launch counts reset
@@ -148,12 +166,11 @@ no result line):
      the default path (the two exhaustive searches, the two quarter-pel
      refines, direct, luma transform and trellis, chroma, decisions,
      deblock, the CABAC writer) and of its lookahead, timed the same way
-     while the clip is encoded again (its stream must equal phase 8's), a
-     B frame's device time per stage and device idle share under
-     torch.profiler (one trace: the P paths' traces were dropped for the
-     run's time, their device columns had agreed within 1% between the two
-     earlier runs that took them), the kernel line, the card's name and power
-     limit, and the result; fail if `jax` or any module of the
+     while the clip is encoded again (its stream must equal phase 8's),
+     the device time per stage and device idle share under torch.profiler
+     of the last P frame of each P breakdown (CAVLC, CABAC, ultrafast,
+     intra refresh) and of a B frame, the kernel line, the card's name
+     and power limit, and the result; fail if `jax` or any module of the
      `x264_tpu` package entered the process.
 """
 
@@ -1085,6 +1102,275 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
     return out
 
 
+# -------------------------------------- the motion kernels (phase 2)
+# Integer ops the searches need: per absolute difference of a SAD
+# (subtract, absolute value, add), per MB and offset for the lanes' sums
+# and the MV rate (16x16 alone, or every partition lane), and per pixel of
+# a weighed 4x4 block of a qpel candidate (the difference, the Hadamard's
+# two passes of 16 adds per 16 pixels, the absolute values and their sum,
+# and the half-pel average where the candidate has one, ~1 per pixel)
+OPS_PER_ABS_DIFF = 3
+OPS_PER_OFFSET = {1: 6, 9: 16}
+OPS_PER_SATD_PIXEL = 7
+
+
+def motion_bound(name, args, out):
+    """Least time the card could take for one launch of motion kernel
+    `name` with the wrapper's arguments `args` and its outputs `out`: the
+    larger of the bytes it must move (each input tensor read once, each
+    output written once) over the memory rate, and the integer ops of
+    this launch's candidates over the ALU rate; the qpel refine counts
+    only the 4x4 blocks its lanes' masks weigh, as it computes only those.
+    Returns (bound_ms, bound_by, bytes, ops)."""
+    import torch
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    outs = list(out.values()) if isinstance(out, dict) else (
+        list(out) if isinstance(out, tuple) else [out])
+    nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+    if name == "me_lowres_scan":
+        lsrc, _, rl = args[:3]
+        n, k = lsrc.numel() // 64, (2 * rl + 1) ** 2
+        ops = n * k * (64 * OPS_PER_ABS_DIFF + OPS_PER_OFFSET[1])
+    elif name in ("me_refine", "me_esa"):
+        y, radius, shapes = args[1], args[-3], args[-2]
+        n, k = y.numel() // 256, (2 * radius + 1) ** 2
+        ops = n * k * (256 * OPS_PER_ABS_DIFF
+                       + OPS_PER_OFFSET[9 if shapes else 1])
+    else:
+        y, masks, tab = args[1], args[3], args[4]
+        blocks = int((masks != 0).sum())
+        ops = (y.numel() // 256) * tab.shape[0] * blocks * 16 \
+            * OPS_PER_SATD_PIXEL
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def nested_err(ref, got):
+    """Largest |ref - got| over two equal structures of tensors (dicts,
+    tuples, lists)."""
+    if isinstance(ref, dict):
+        if set(ref) != set(got):
+            return float("inf")
+        return max(nested_err(ref[k], got[k]) for k in ref)
+    if isinstance(ref, (tuple, list)):
+        return max(nested_err(a, b) for a, b in zip(ref, got))
+    if ref.shape != got.shape:
+        return float("inf")
+    return int((ref.long() - got.long()).abs().max())
+
+
+def motion_parts(kind, args, kw):
+    """The motion kernels' launches inside one call of a public search
+    (`kind`: "seeded", "esa", "subpel_all", "subpel_mc") with these
+    arguments: [(kernel, launch, plain version, arguments of both)], each
+    launch's inputs computed as the search computes them, from the plain
+    stages before it. Returns (those, the public search, its *_ref)."""
+    import torch
+    from x264_tpu_torch.device import const
+    from x264_tpu_torch.encoder import inter
+    from x264_tpu_torch.ops import mc
+    from x264_tpu_torch.ops import motion as MO
+    if kind == "seeded":
+        yp, y, lam, R = args[:4]
+        shapes, cap = kw.get("shapes", False), kw.get("pir_cap")
+        M = kw.get("refine", 4)
+        H, W = y.shape
+        rl = (R + 1) // 2
+        lsrc = inter._lowres(y)
+        lref = mc._clamped(inter._lowres(yp[mc.PAD:mc.PAD + H,
+                                            mc.PAD:mc.PAD + W]),
+                           rl + 1, rl + 1, rl + 1, rl + 1)
+        low = (lsrc, lref, rl, lam)
+        seed = (2 * MO.lowres_scan_plain(*low)).clamp(-(R - M), R - M)
+        mvp = inter.mv_predictors(seed * 4)[0].contiguous()
+        ref = (yp, y, seed, mvp, lam, M, shapes, cap)
+        return ([("me_lowres_scan", MO.lowres_scan_launch,
+                  MO.lowres_scan_plain, low),
+                 ("me_refine", MO.refine_launch, MO.fullpel_plain, ref)],
+                inter.motion_search_seeded, inter.motion_search_seeded_ref)
+    if kind == "esa":
+        yp, _, y, lam, R = args[:5]
+        shapes = args[5] if len(args) > 5 else kw.get("shapes", False)
+        cap = kw.get("pir_cap")
+
+        def plain(yp, y, mvp, lam, R, shapes, cap):
+            return MO.fullpel_plain(yp, y, None, mvp, lam, R, shapes, cap)
+
+        mv1 = plain(yp, y, None, lam, R, False, cap)
+        mvp = inter.mv_predictors(mv1 * 4)[0].contiguous()
+        return ([("me_esa", MO.esa_launch, plain,
+                  (yp, y, None, lam, R, False, cap)),
+                 ("me_esa", MO.esa_launch, plain,
+                  (yp, y, mvp, lam, R, shapes, cap))],
+                inter.motion_search, inter.motion_search_ref)
+    hp, y, mv, lam = args[:4]
+    mvp_q = kw.get("mvp_q")
+    if kind == "subpel_all":
+        lanes = [mv["16x16"], *mv["16x8"].unbind(2), *mv["8x16"].unbind(2)]
+        if kw.get("p8x8", True):
+            lanes += list(mv["8x8"].unbind(2))
+        lane_mv = torch.stack(lanes)
+        public, ref = inter.subpel_refine_all, inter.subpel_refine_all_ref
+    else:
+        lane_mv = mv[None].contiguous()
+        public, ref = inter.subpel_refine_mc, inter.subpel_refine_mc_ref
+    dev = y.device
+    sub = (hp, y, lane_mv, const(inter._PART_MASKS[:lane_mv.shape[0]], dev),
+           const(inter._subpel_cand_table(3), dev), lam, mvp_q)
+    return [("me_subpel", MO.subpel_launch, MO.subpel_plain, sub)], \
+        public, ref
+
+
+def motion_cases(torch, dev):
+    """The tie inputs of tests/test_torch_motion.py on the card: 48x32
+    luma planes (current, padded reference, its half-pel planes) that are
+    flat, periodic (period 4, so SADs tie at offsets 4 apart) or moving,
+    at lam 0, 6 and 200, me_range 4, 16 and 24, with and without the PIR
+    cap. Yields (label, y, y_pad, hpel, lam, me_range, cap)."""
+    import numpy as np
+    from x264_tpu_torch.ops import mc
+    w, h = 48, 32
+    yy, xx = np.mgrid[0:h, 0:w]
+    tex = ((xx % 4) * 40 + (yy % 4) * 25 + 20).astype(np.uint8)
+    noise = np.random.default_rng(11).integers(0, 2, (h, w))
+    mov = moving_frames(2, w, h, seed=11)
+    content = {"flat": (np.full((h, w), 90, np.uint8),
+                        np.full((h, w), 93, np.uint8)),
+               "periodic": ((tex + noise).astype(np.uint8),
+                            np.roll(tex, (1, 2), (0, 1))),
+               "moving": (mov[1][0], mov[0][0])}
+    cap = torch.tensor([[-4, 1, 1 << 20]] * 2, dtype=torch.int32,
+                       device=dev)
+    for label, kind, lam, R, pir in (
+            ("flat", "flat", 6, 16, False),
+            ("periodic, lam 0, me_range 4", "periodic", 0, 4, False),
+            ("periodic, lam 200", "periodic", 200, 16, False),
+            ("periodic, PIR cap", "periodic", 6, 16, True),
+            ("moving, me_range 24", "moving", 6, 24, False)):
+        y, r = (torch.from_numpy(np.ascontiguousarray(p)).to(dev)
+                for p in content[kind])
+        y_pad = mc.pad_plane(r)
+        yield (f"48x32 {label}", y, y_pad, mc.hpel_planes(y_pad), lam, R,
+               cap if pir else None)
+
+
+def motion_phase(torch, dev, clip, b_calls):
+    """Phase 2, the motion kernels: each against its plain version on the
+    card (lowres_scan_plain, fullpel_plain, subpel_plain: the kernels'
+    order), and each public search through its kernels against its
+    sequential plain version (*_ref), tolerance 0 (every output is an
+    integer): the tie cases of motion_cases (every search, 1, 5 and 9 qpel
+    lanes); the real calls of P frame 2 of the 1080p clip at preset medium
+    (the seeded search and the 9-lane refine against both references, as
+    the encoder's dispatch made them) and of the default path's first B
+    frame (the ESA and the 1-lane refine of both lists, `b_calls`); the
+    ESA at me_range 24 with every lane (tesa's range) on P frame 2. Then
+    each kernel timed on its real 1080p inputs (CUDA events, 2 x 20
+    launches after 3; the B frame's second ESA pass for me_esa, P frame
+    2's first reference for the others) beside its plain version (one
+    run) and its bound. Returns what the report reads."""
+    from x264_tpu_torch.encoder import inter
+    from x264_tpu_torch.encoder.encoder import TYPE_IDR, TYPE_P, Encoder
+    worst = {name: 0 for name, _, _ in MOTION_KERNELS}
+    whole = {}
+    timed = {}
+
+    def check(label, kind, args, kw, time_as=None):
+        parts, public, ref = motion_parts(kind, args, kw)
+        for name, launch, plain, a in parts:
+            want = plain(*a)
+            got = launch(*a)
+            err = nested_err(want, got)
+            worst[name] = max(worst[name], err)
+            if err != 0:
+                fail(f"phase 2 {name} disagrees with its plain version "
+                     f"({label}): max_abs_err {err}")
+            if time_as is not None and name in time_as \
+                    and name not in timed:
+                timed[name] = (label, launch, plain, a, got)
+        want, got = ref(*args, **kw), public(*args, **kw)
+        err = nested_err(want, got)
+        whole[kind] = max(whole.get(kind, 0), err)
+        if err != 0:
+            fail(f"phase 2 {kind} search through the kernels disagrees with "
+                 f"its *_ref ({label}): max_abs_err {err}")
+        return got
+
+    n_small = 0
+    for label, y, yp, hp, lam, R, cap in motion_cases(torch, dev):
+        mvs = check(label, "esa", (yp, None, y, lam, R, True),
+                    {"pir_cap": cap})
+        check(label, "esa", (yp, None, y, lam, R, False), {"pir_cap": cap})
+        check(label, "seeded", (yp, y, lam, R),
+              {"shapes": True, "pir_cap": cap})
+        mvp = inter.mv_predictors(mvs["16x16"] * 4)[0].reshape(-1, 2)
+        for p8 in (False, True):
+            check(label, "subpel_all", (hp, y, mvs, lam, R),
+                  {"mvp_q": mvp.contiguous(), "p8x8": p8})
+        check(label, "subpel_mc", (hp, y, mvs["16x16"], lam, R), {})
+        n_small += 1
+    torch.cuda.synchronize()
+    log(f"phase 2 motion kernels vs their plain versions, {n_small} tie "
+        f"cases at 48x32: max_abs_err {worst} (tolerance 0); searches vs "
+        f"*_ref {whole}")
+
+    # P frame 2 of the 1080p clip at preset medium: its searches' calls
+    h, w = clip[0][0].shape
+    enc = Encoder(ippp_params(w, h), device=dev)
+    enqueue(enc, clip[0], TYPE_IDR, 0)
+    enqueue(enc, clip[1], TYPE_P, 1)
+    seeded_calls, subpel_calls = [], []
+    restore = [capture_calls(inter, "motion_search_seeded", seeded_calls, 2),
+               capture_calls(inter, "subpel_refine_all", subpel_calls, 2)]
+    enqueue(enc, clip[2], TYPE_P, 2)
+    for r in restore:
+        r()
+    del enc
+    if len(seeded_calls) != 2 or len(subpel_calls) != 2:
+        fail(f"P frame 2 made {len(seeded_calls)} seeded searches and "
+             f"{len(subpel_calls)} qpel refines, expected 2 each")
+    for k, ((sa, skw), (qa, qkw)) in enumerate(zip(seeded_calls,
+                                                   subpel_calls)):
+        label = f"1080p P frame 2, reference {k}"
+        check(label, "seeded", sa, skw,
+              time_as=("me_lowres_scan", "me_refine"))
+        check(label, "subpel_all", qa, qkw, time_as=("me_subpel",))
+    yp, y = seeded_calls[0][0][:2]
+    check("1080p P frame 2, reference 0, ESA at me_range 24, every lane",
+          "esa", (yp, None, y, seeded_calls[0][0][2], 24, True), {})
+    esa_calls, mc_calls = b_calls
+    for k, ((ea, ekw), (ma, mkw)) in enumerate(zip(esa_calls, mc_calls)):
+        label = f"1080p B frame of the default path, list {k}"
+        check(label, "esa", ea, ekw)
+        check(label, "subpel_mc", ma, mkw)
+    # the B frame's second ESA pass is the me_esa launch that is timed
+    ea, ekw = esa_calls[0]
+    parts, _, _ = motion_parts("esa", ea, ekw)
+    timed["me_esa"] = ("1080p B frame of the default path, list 0, pass 2",
+                       *parts[1][1:], parts[1][1](*parts[1][3]))
+    torch.cuda.synchronize()
+    log(f"phase 2 motion kernels vs their plain versions, 1080p P frame 2 "
+        f"(2 references), its ESA at me_range 24 and the B frame's 2 lists: "
+        f"max_abs_err {worst} (tolerance 0); searches vs *_ref {whole}")
+
+    out = {"worst": worst, "whole": whole}
+    for name, (label, launch, plain, a, got) in timed.items():
+        plain_ms = cuda_ms(torch, lambda: plain(*a), 1)
+        cuda_ms(torch, lambda: launch(*a), 3)            # warm-up
+        runs = [cuda_ms(torch, lambda: launch(*a), 20) for _ in range(2)]
+        bound_ms, bound_by, nbytes, ops = motion_bound(name, a, got)
+        ms = sum(runs) / len(runs)
+        out[name] = {"ms": ms, "runs": runs, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "ops": ops, "shape": label}
+        log(f"phase 2 {name} on {label} (CUDA events, 20 launches each): "
+            f"{runs[0]:.4f} / {runs[1]:.4f} ms; plain version {plain_ms:.1f} "
+            f"ms (1 run); bound {bound_ms * 1e3:.3f} us by {bound_by} "
+            f"({nbytes} bytes, {ops} integer ops)")
+    return out
+
+
 # --------------------------------- CLI, farm and mesh, CUDA == CPU (phase 3)
 def cli_run(dev_name, work, name, src, extra):
     """The port's CLI on `src` with --device dev_name -> (output bytes,
@@ -1140,11 +1426,46 @@ def launch_counts():
 
 
 def reset_launches():
-    """Set both kernels' launch counts to 0 (just before a path runs)."""
+    """Set every kernel's launch count to 0 (just before a path runs)."""
     from x264_tpu_torch.ops import commit as C
     from x264_tpu_torch.ops import deblock as D
+    from x264_tpu_torch.ops import motion as MO
     C.commit.launches = 0
     D.deblock_frame.launches = 0
+    for fn in MO.LAUNCHES:
+        fn.launches = 0
+
+
+# the motion kernels: (name, wrapper in ops/motion.py, the scan replaced)
+MOTION_KERNELS = (
+    ("me_lowres_scan", "lowres_scan_launch",
+     "x264_tpu/encoder/inter.py:208 (motion_search_seeded stage 1, jnp "
+     "lax.scan)"),
+    ("me_refine", "refine_launch",
+     "x264_tpu/encoder/inter.py:248 (motion_search_seeded stage 2, jnp "
+     "lax.scan)"),
+    ("me_esa", "esa_launch",
+     "x264_tpu/encoder/inter.py:86 (motion_search, jnp lax.scan)"),
+    ("me_subpel", "subpel_launch",
+     "x264_tpu/encoder/inter.py:351 (_subpel_refine_scan with "
+     "_subpel_windows :400, jnp lax.scan)"))
+SEEDED = ("me_lowres_scan", "me_refine", "me_subpel")   # seeded P paths
+ESA_P = ("me_esa", "me_subpel")                         # esa / tesa P paths
+
+
+def motion_counts():
+    """Each motion kernel's launches in this process so far, by name."""
+    from x264_tpu_torch.ops import motion as MO
+    return {name: getattr(MO, fn).launches for name, fn, _ in MOTION_KERNELS}
+
+
+def check_motion(label, counts, used):
+    """Fail unless each motion kernel in `used` launched on the path (its
+    counts read just after it ran, from 0 just before) and no other did."""
+    bad = {k: v for k, v in counts.items() if (v > 0) != (k in used)}
+    if bad:
+        fail(f"{label}: motion kernel launches {counts}; expected launches "
+             f"of exactly {list(used)}")
 
 
 def add_launches(launches, n0):
@@ -1302,13 +1623,18 @@ def stream_case(label, p_dev, p_cpu, frames, dev_name, opts):
     opts: want (the frame types), need_b (a B frame among them), no_8x8
     (no P_8x8 MB), refresh (refresh_at_1), ssim (each frame's SSIM equal
     within 1e-6), pir (frame 1 a keyframe), decode (refdec is to decode
-    the stream to the reconstructions)."""
+    the stream to the reconstructions), motion (the motion kernels that
+    must launch in the CUDA encode, and no other)."""
     from x264_tpu_torch.encoder.encoder import TYPE_B, Encoder, Picture
     before = refresh_at_1 if opts.get("refresh") else None
     enc_g = Encoder(p_dev, device=dev_name)
+    reset_launches()
     t0 = time.time()
     s_gpu, o_gpu = encode_stream(enc_g, frames, Picture, before)
     t_gpu = time.time() - t0
+    motion = motion_counts()
+    if "motion" in opts and dev_name == "cuda":
+        check_motion(f"phase 3 {label}", motion, opts["motion"])
     t0 = time.time()
     s_cpu, o_cpu = encode_stream(Encoder(p_cpu, device="cpu"), frames,
                                  Picture, before)
@@ -1336,6 +1662,8 @@ def stream_case(label, p_dev, p_cpu, frames, dev_name, opts):
         if not o_gpu[1].b_keyframe:
             fail(f"phase 3 {label}: the queued refresh did not start a "
                  f"sweep at frame 1")
+    if "motion" in opts:
+        extra += f", motion kernel launches {motion}"
     line = (f"phase 3 {label}: CUDA stream == CPU stream ({len(s_gpu)} "
             f"bytes, types {types}, QPs {[o.qp for o in o_gpu]}, P MBs "
             f"{mb.get('P')}{extra}; CUDA {t_gpu:.1f} s, CPU {t_cpu:.1f} s)")
@@ -1551,6 +1879,10 @@ def phase3_cases(dev_name, mid):
         add(big, f"{label} 640x360 x3", make, mid[:3], refresh=True,
             decode=True, **opts)
         add(small, f"{label} 64x48 x5", make, mov, refresh=True, **opts)
+    # the ESA at the presets' largest range (veryslow, placebo: tesa, 24)
+    add(big, "tesa me_range 24 640x360 x3",
+        option_params(analyse__me_method=4, analyse__me_range=24), mid[:3],
+        motion=ESA_P)
     add(big, "64x48 defaults (CRF, MB-tree, AQ, adaptive B) x28",
         default_params, mov28, need_b=True, decode=True)
     big.append(("farm 640x360", farm_case, (640, 360, 3, dev_name)))
@@ -1680,6 +2012,8 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     reset_launches()
     streams, recons, launches, secs = farm_run(
         torch, C, farm_params(w, h), clips, dev)
+    farm_motion = motion_counts()
+    check_motion("phase 10 farm", farm_motion, SEEDED)
     if launches["commit"] != [1] * N_FARM_FRAMES or \
             launches["deblock"] != [2] * N_FARM_FRAMES or \
             launch_counts() != (N_FARM_FRAMES, 2 * N_FARM_FRAMES):
@@ -1694,11 +2028,12 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     if min(min(p) for p in psnr) < 30:
         fail(f"phase 10 farm: PSNR Y {psnr}")
     res["farm"] = {"fps": N_FARM_FRAMES * 2 / secs, "launches": launches,
-                   "stages": stages}
+                   "stages": stages, "motion": farm_motion}
     log(f"phase 10 farm S=2 x {N_FARM_FRAMES} x 1080p (I P P, one batched "
         f"commit per frame position): fps {res['farm']['fps']:.4f} (frames "
         f"x streams / s; {secs:.3f} s, first position included); "
-        f"launches per frame position {launches}; bytes "
+        f"launches per frame position {launches}, motion kernel launches "
+        f"{farm_motion}; bytes "
         f"{[frame_bytes(s) for s in streams]}; PSNR Y {psnr}; stages ms per "
         f"frame position (a second run, {t_secs:.3f} s, streams equal; host "
         f"clock, synchronised around each stage): " + json.dumps(stages))
@@ -1706,6 +2041,8 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     reset_launches()
     (intra_o, p_o), m_l, m_s, layout = mesh_run(
         torch, C, dev, [frames0[0]], [frames0[1]], band_rows)
+    mesh_motion = motion_counts()
+    check_motion("phase 10 mesh", mesh_motion, ESA_P)
     if m_l["commit"] != [1, 0] or m_l["deblock"] != [0, 4] or \
             launch_counts() != (1, 4):
         fail(f"phase 10 mesh: launches {m_l}, expected commit 1 and 0, "
@@ -1729,11 +2066,12 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     hb = 4 * 16 * band_rows
     m_bytes = mesh_bytes(mesh_params(w, hb), intra_o, p_o, 0, band_rows)
     res["mesh"] = {"fps": 2 / sum(m_s), "launches": m_l,
-                   "stages": timer.ms}
+                   "stages": timer.ms, "motion": mesh_motion}
     log(f"phase 10 mesh 1 stream x 4 bands of 17 MB rows at 1080p (layout "
         f"{layout.shape} of make_mesh(4); I step, then P step): fps "
         f"{res['mesh']['fps']:.4f} ({m_s[0]:.3f} s I, {m_s[1]:.3f} s P); "
-        f"launches (I step, P step) {m_l}; {len(m_bytes)} bytes (band bits I "
+        f"launches (I step, P step) {m_l}, motion kernel launches "
+        f"{mesh_motion}; {len(m_bytes)} bytes (band bits I "
         f"{intra_o[1][0].tolist()}, P {p_o[1][0].tolist()}); PSNR Y "
         f"{m_psnr}; stages ms (a second run, {sum(m_ts):.3f} s, words "
         f"equal; host clock, synchronised around each stage): "
@@ -1747,6 +2085,8 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     reset_launches()
     out, _, secs = cli_run("cuda", work, "cli1080", src, opts + ["mp4"])
     cli_launches, cli_deblocks = launch_counts()
+    cli_motion = motion_counts()
+    check_motion("phase 10 CLI", cli_motion, SEEDED)
     if cli_launches != N_CLI_FRAMES:
         fail(f"phase 10 CLI: {cli_launches} commit launches for "
              f"{N_CLI_FRAMES} frames")
@@ -1758,13 +2098,14 @@ def full_width_phase(torch, C, dev, clip, w=1920, h=1080, band_rows=17):
     if again != out:
         fail("phase 10 CLI: the timed run's output differs")
     res["cli"] = {"fps": N_CLI_FRAMES / secs, "launches": cli_launches,
-                  "deblocks": cli_deblocks,
+                  "deblocks": cli_deblocks, "motion": cli_motion,
                   "stages": timer.ms, "calls": timer.calls}
     log(f"phase 10 CLI 1080p x{N_CLI_FRAMES} (y4m by Y4MWriter, preset "
         f"ultrafast, ABR 8000 kb/s, VBV, nal-hrd cbr, .mp4; "
         f"cli.main --device cuda): fps {res['cli']['fps']:.4f} ({secs:.3f} "
         f"s, reading and muxing included); commit launches {cli_launches} "
-        f"(1 per frame), deblock launches {cli_deblocks}; {len(out)} bytes; "
+        f"(1 per frame), deblock launches {cli_deblocks}, motion kernel "
+        f"launches {cli_motion}; {len(out)} bytes; "
         f"stages ms summed over the "
         f"clip, and their calls (a second run, output equal): "
         + json.dumps(res["cli"]["stages"]) + " "
@@ -1787,8 +2128,10 @@ def main():
     from x264_tpu_torch.encoder.encoder import (TYPE_B, TYPE_IDR, TYPE_P,
                                                 Encoder, Picture)
     from x264_tpu_torch.encoder import bframe
+    from x264_tpu_torch.encoder import inter
     from x264_tpu_torch.ops import commit as C
     from x264_tpu_torch.ops import deblock as D
+    from x264_tpu_torch.ops import motion as MO
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1815,10 +2158,12 @@ def main():
     lib = C.build_library()
     C._library()
     D._library()
+    MO._library()
     cap = C.grid_capacity(dev)
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
-        f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu and csrc/deblock.cu, "
-        f"one nvcc each, started together); frame kernel: {cap} co-resident "
+        f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu, csrc/deblock.cu and "
+        f"csrc/motion.cu, one nvcc each, started together); frame kernel: "
+        f"{cap} co-resident "
         f"blocks; deblock kernel: {D.grid_capacity(dev)} blocks of "
         f"{D.band_rows()} MB rows")
     th.join()
@@ -1852,8 +2197,10 @@ def main():
     p8.analyse.psnr = True
     enc8 = Encoder(p8, device=dev)
     # the first B frame's deblock inputs, kept for phase 2 (one clone)
-    b_deblock = []
-    restore = capture_calls(bframe, "deblock_frame", b_deblock)
+    b_deblock, b_esa, b_subpel = [], [], []
+    restore = [capture_calls(bframe, "deblock_frame", b_deblock),
+               capture_calls(bframe, "motion_search", b_esa, 2),
+               capture_calls(bframe, "subpel_refine_mc", b_subpel, 2)]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.time()
@@ -1861,7 +2208,9 @@ def main():
     torch.cuda.synchronize()
     wall8 = time.time() - t0
     launches_d, deblocks_d = launch_counts()
-    restore()
+    motion = {"defaults": motion_counts()}
+    for r in restore:
+        r()
     refdec8 = refdec_start(stream8, "default", background=True)
     types8 = [o.i_type for o in outs8]
     n_ip = sum(t != TYPE_B for t in types8)
@@ -1873,7 +2222,10 @@ def main():
         f"{deblocks_d} (frames: {len(outs8)}), B MBs "
         f"{enc8.stats['mb'].get('B')} (direct counts the skipped MBs too), "
         f"P MBs {enc8.stats['mb']['P']}, weightp frames "
-        f"{enc8.stats.get('weightp_frames', 0)}")
+        f"{enc8.stats.get('weightp_frames', 0)}, motion kernel launches "
+        f"{motion['defaults']}")
+    check_motion("phase 8 default path", motion["defaults"],
+                 ("me_lowres_scan", "me_refine", "me_esa", "me_subpel"))
     if len(outs8) != N_DEFAULT_FRAMES or types8[0] != TYPE_IDR:
         fail(f"default path: {len(outs8)} frames, types {types8}")
     if TYPE_B not in types8:
@@ -2017,6 +2369,12 @@ def main():
     dbk = deblock_phase(torch, D, dev, rng, timing_args, p_deblock[0],
                         b_deblock[0])
     mark("2 the deblock kernel")
+    if len(b_esa) != 2 or len(b_subpel) != 2:
+        fail(f"the default path's first B frame made {len(b_esa)} ESA and "
+             f"{len(b_subpel)} qpel refine calls, expected 2 each")
+    mot = motion_phase(torch, dev, clip, (b_esa, b_subpel))
+    del b_esa, b_subpel
+    mark("2 the motion kernels")
 
     # ---- phase 4: the all-intra path, 2 x 1080p through Encoder.encode --
     p4 = intra_params(1920, 1080)
@@ -2029,11 +2387,13 @@ def main():
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, deblocks = launch_counts()
+    motion["all-intra"] = motion_counts()
     retries = sum((o.qp - qp_i) // 4 for o in outs)
     log(f"phase 4 all-intra path: {len(outs)} frames, {len(stream)} bytes, "
         f"QPs {[o.qp for o in outs]}, commit launches {launches} "
         f"(= {N_FRAMES} frames + {retries} re-encodes), deblock launches "
-        f"{deblocks}")
+        f"{deblocks}, motion kernel launches {motion['all-intra']}")
+    check_motion("phase 4 all-intra path", motion["all-intra"], ())
     if len(outs) != N_FRAMES:
         fail(f"{len(outs)} frames out of {N_FRAMES}")
     if launches != N_FRAMES + retries:
@@ -2069,6 +2429,7 @@ def main():
     torch.cuda.synchronize()
     wall5 = time.time() - t0
     launches_p, deblocks_p = launch_counts()
+    motion["IPPP"] = motion_counts()
     types = [o.i_type for o in outs5]
     nominal = {TYPE_IDR: qp_i, TYPE_P: qp_p}
     retries5 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs5)
@@ -2078,7 +2439,9 @@ def main():
         f"commit launches {launches_p} (= {N_P_FRAMES} frames + "
         f"{retries5} re-encodes), deblock launches {deblocks_p}, P MBs "
         f"{enc5.stats['mb']['P']}, weightp "
-        f"frames {enc5.stats.get('weightp_frames', 0)}")
+        f"frames {enc5.stats.get('weightp_frames', 0)}, motion kernel "
+        f"launches {motion['IPPP']}")
+    check_motion("phase 5 P main path", motion["IPPP"], SEEDED)
     if types != [TYPE_IDR] + [TYPE_P] * (N_P_FRAMES - 1):
         fail(f"frame types {types}, expected IDR then {N_P_FRAMES - 1} P")
     if launches_p != N_P_FRAMES + retries5:
@@ -2110,6 +2473,7 @@ def main():
     torch.cuda.synchronize()
     wall7 = time.time() - t0
     launches_c, deblocks_c = launch_counts()
+    motion["CABAC"] = motion_counts()
     types7 = [o.i_type for o in outs7]
     retries7 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs7)
     log(f"phase 7 CABAC main path: {len(outs7)} frames, types {types7}, "
@@ -2118,7 +2482,9 @@ def main():
         f"commit launches {launches_c} (= {N_CABAC_FRAMES} frames + "
         f"{retries7} re-encodes), deblock launches {deblocks_c}, P MBs "
         f"{enc7.stats['mb']['P']}, weightp "
-        f"frames {enc7.stats.get('weightp_frames', 0)}")
+        f"frames {enc7.stats.get('weightp_frames', 0)}, motion kernel "
+        f"launches {motion['CABAC']}")
+    check_motion("phase 7 CABAC main path", motion["CABAC"], SEEDED)
     if types7 != [TYPE_IDR] + [TYPE_P] * (N_CABAC_FRAMES - 1):
         fail(f"CABAC frame types {types7}")
     if launches_c != N_CABAC_FRAMES + retries7:
@@ -2154,6 +2520,7 @@ def main():
             ("intra refresh", True, N_PIR_FRAMES, (10, 11, 12))):
         fast[label] = fast_path(torch, C, label, ultrafast_params(
             1920, 1080, pir=pir), clip[:n], dev, qp_i, timed)
+        motion[label] = fast[label]["motion"]
         later_cases.append(fast[label]["cpu_case"])
         prefixes[fast[label]["cpu_case"][0]] = fast[label]["stream"]
         mark(f"9 1080p {label} path, its stages")
@@ -2161,17 +2528,19 @@ def main():
     # ---- phase 10: the farm, the mesh and the CLI at 1080p ----
     full = full_width_phase(torch, C, dev, clip)
     later_cases.append(full["cli_case"])
+    for key in ("farm", "mesh", "cli"):
+        motion[key] = full[key]["motion"]
     mark("10 1080p farm, mesh and CLI")
 
     # ---- phase 6: report ----
     stages = stage_breakdown(torch, enc_big, enc_big._pad_to_mb(clip[0]),
                              qp_i)
-    p_stages, stream6 = p_stage_breakdown(torch, p5, clip[:N_P_FRAMES], dev,
-                                          P_TIMED)
+    p_stages, stream6, p_prof = p_stage_breakdown(
+        torch, p5, clip[:N_P_FRAMES], dev, P_TIMED)
     if stream6 != stream5:
         fail("the timed IPPP encode's stream differs from phase 5's")
     mark("6 I and CAVLC P stage breakdowns")
-    c_stages, stream9 = p_stage_breakdown(
+    c_stages, stream9, c_prof = p_stage_breakdown(
         torch, p7, clip[:N_CABAC_FRAMES], dev, CABAC_TIMED)
     if stream9 != stream7:
         fail("the timed CABAC encode's stream differs from phase 7's")
@@ -2229,11 +2598,14 @@ def main():
         "clock, synchronised, over every B frame of the clip; the lookahead "
         "stages are sums over the clip's one decision; its stream == phase "
         "8's): " + json.dumps(b_stages))
+    for label, prof, phase in (("CAVLC", p_prof, 5), ("CABAC", c_prof, 7)):
+        log(f"phase 6 1080p {label} P frame under torch.profiler (the "
+            f"encode call that dispatches the clip's last P frame, two "
+            f"references, and finalizes the one before; its stream == "
+            f"phase {phase}'s): " + profile_text(prof))
     log("phase 6 1080p B frame under torch.profiler (the encode call that "
         "dispatches the clip's last B frame and finalizes an earlier "
-        "frame): " + (
-        json.dumps(b_prof) + ("" if b_prof["device_ops"] else " (the "
-        "profiler saw no device time: device idle share not measured)")))
+        "frame): " + profile_text(b_prof))
     for label, r in fast.items():
         log(f"phase 6 fps ({r['frames']} x 1080p {label}, Encoder.encode, "
             f"host clock, first frame included): {r['fps']:.4f} "
@@ -2242,6 +2614,12 @@ def main():
             f"synchronised; the Encoder.encode calls {r['timed']}, each "
             f"dispatching the P frame before it; its stream == phase 9's): "
             + json.dumps(r["stages"]))
+        log(f"phase 6 1080p P frame, {label}, under torch.profiler (the "
+            f"encode call that dispatches the clip's last P frame and "
+            f"finalizes the one before; its stream == phase 9's): "
+            + profile_text(r["profile"]))
+    log("phase 6 motion kernel launches per path (counts from 0 just "
+        "before each path, read just after): " + json.dumps(motion))
     log("phase 6 host seconds by phase: " + json.dumps(phase_seconds()))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2316,7 +2694,18 @@ def main():
         "launches_intra_refresh_path": fast["intra refresh"]["deblocks"],
         "launches_farm_1080p": full["farm"]["launches"]["deblock"],
         "launches_mesh_1080p": full["mesh"]["launches"]["deblock"],
-        "launches_cli_1080p": full["cli"]["deblocks"]}]}))
+        "launches_cli_1080p": full["cli"]["deblocks"]}] + [{
+        "name": name, "route": "cuda",
+        "source": "x264_tpu_torch/csrc/motion.cu", "replaces": replaces,
+        # me_esa runs on the default path (B frames) and the mesh, the
+        # others on the P main path
+        "launches": motion["defaults" if name == "me_esa" else "IPPP"][name],
+        "max_abs_err": mot["worst"][name], "ms": mot[name]["ms"],
+        "plain_ms": mot[name]["plain_ms"], "bound_ms": mot[name]["bound_ms"],
+        "bound_by": mot[name]["bound_by"], "library_ms": None,
+        "shape": mot[name]["shape"],
+        "launches_per_path": {k: v[name] for k, v in motion.items()}}
+        for name, _, replaces in MOTION_KERNELS]}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
@@ -2365,6 +2754,7 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, deblocks = launch_counts()
+    motion = motion_counts()
     types = [o.i_type for o in outs]
     n = len(clip)
     retries = sum((o.qp - qp_i) // 4 if o.i_type == TYPE_IDR else
@@ -2374,7 +2764,9 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
         f"{[o.qp for o in outs]}, keyframes {[o.b_keyframe for o in outs]}, "
         f"commit launches {launches} (per dispatched frame {per_frame}; "
         f"{n} frames + {retries} re-encodes), deblock launches {deblocks} "
-        f"(ultrafast: no deblock), P MBs {enc.stats['mb']['P']}")
+        f"(ultrafast: no deblock), P MBs {enc.stats['mb']['P']}, motion "
+        f"kernel launches {motion}")
+    check_motion(f"phase 9 1080p {label}", motion, SEEDED)
     if types != [TYPE_IDR] + [TYPE_P] * (n - 1):
         fail(f"{label}: frame types {types}")
     if launches != n + retries:
@@ -2405,15 +2797,16 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     log(f"phase 9 1080p {label} PSNR Y/U/V per frame: "
         + " ".join(f"{o.psnr[0]:.2f}/{o.psnr[1]:.2f}/{o.psnr[2]:.2f}"
                    for o in outs))
-    stages, stream2 = p_stage_breakdown(torch, params, clip, dev,
-                                        timed_calls)
+    stages, stream2, prof = p_stage_breakdown(torch, params, clip, dev,
+                                              timed_calls)
     if stream2 != stream:
         fail(f"the timed {label} encode's stream differs from phase 9's")
     # frames 0-1 against the CPU port's: a case of phase 3
     key = f"phase 9 1080p {label} frames 0-1"
     return {"fps": n / wall, "wall": wall, "launches": launches,
-            "deblocks": deblocks,
-            "stages": stages, "frames": n, "timed": list(timed_calls),
+            "deblocks": deblocks, "motion": motion,
+            "stages": stages, "profile": prof, "frames": n,
+            "timed": list(timed_calls),
             "stream": stream,
             "cpu_case": (key, cpu_prefix, (key, params.copy(), clip[:2]))}
 
@@ -2631,17 +3024,23 @@ def p_stage_breakdown(torch, params, clip, dev, timed_calls):
     two references: a fresh encoder takes the IPPP clip; the calls that
     take the frames `timed_calls` (each dispatches the P frame before it,
     which searches two references, and finalizes the one before that) run
-    under a StageTimer. Returns (ms per frame by stage, the whole
-    stream)."""
+    under a StageTimer. The first flush call (it dispatches the clip's
+    last P frame, two references, and finalizes the one before) runs under
+    torch.profiler (device_profile). Returns (ms per frame by stage, the
+    whole stream, the profile)."""
     from x264_tpu_torch.encoder.encoder import Encoder, Picture, annexb_bytes
     enc = Encoder(params, device=dev)
     stream = annexb_bytes(enc.headers())
     timer = StageTimer(torch, enc)
     wall = 0.0
+    prof = None
     for i, frame in enumerate(list(clip) + [None]):
         while True:
             pic = None if frame is None else Picture(frame, pts=i)
-            if i in timed_calls:
+            if frame is None and prof is None:
+                prof, nals, out = device_profile(torch, enc,
+                                                 StageTimer.P_HOOKS)
+            elif i in timed_calls:
                 with timer:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -2658,7 +3057,7 @@ def p_stage_breakdown(torch, params, clip, dev, timed_calls):
     stages["unstaged"] = round((wall - sum(timer.ms.values())) / runs, 3)
     stages["encode_call"] = round(wall / runs, 3)
     stages["calls"] = timer.calls
-    return stages, stream
+    return stages, stream, prof
 
 
 def b_stage_breakdown(torch, params, clip, dev):
@@ -2719,6 +3118,13 @@ def b_stage_breakdown(torch, params, clip, dev):
     return stages, prof, stream
 
 
+def profile_text(prof):
+    """A device_profile result as the report prints it."""
+    return json.dumps(prof) + ("" if prof["device_ops"] else " (the "
+                               "profiler saw no device time: device idle "
+                               "share not measured)")
+
+
 def trace_events(torch, prof):
     """(name, on the card, start us, duration us) of every event of a
     finished torch.profiler trace. Read from the profiler's raw event
@@ -2738,7 +3144,7 @@ def trace_events(torch, prof):
 
 
 def device_profile(torch, enc, hooks, dpb_push=True):
-    """One encode(None) call of `enc` (it dispatches one frame and
+    """One flush call of `enc`, encode(None) (it dispatches one frame and
     finalizes an earlier one: one frame's work) under torch.profiler,
     each stage of `hooks` in its range and synchronised as StageTimer
     does: per stage the card's time and operation count (kernels, copies

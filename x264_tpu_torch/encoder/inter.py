@@ -24,9 +24,15 @@ reduction, periodic intra refresh, dct decimation and the deblock.
      (`cabac_finalize_pframe`);
   7. the deblock (`p_deblock_core`).
 
-x264_tpu's scans (lax.scan over offsets and candidates) are Python loops
-over the same static tables here, in the same order, and a step replaces
-the best only when its cost is strictly lower, so ties resolve as in JAX.
+x264_tpu's search scans (lax.scan over offsets and candidates) are
+hand-written kernels on a card (csrc/motion.cu through ops/motion.py:
+`motion_search`, `motion_search_seeded`, `subpel_refine_all` and
+`subpel_refine_mc` send CUDA tensors there) and Python loops over the same
+static tables on the CPU (`*_ref`), in the same order: a step replaces the
+best only when its cost is strictly lower, so ties resolve as in JAX. The
+kernels reduce over all candidates at once, by the first minimum of (cost,
+scan index); ops/motion.py's `*_plain` functions compute what each kernel
+computes in that order.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from ..entropy.cabac_host import encode_slice_cabac
 from ..entropy.cavlc_dev import (LUMA4x4_RASTER, _nc_grid_dev,
                                  encode_pframe_entropy_dev,
                                  residual_blocks_dev)
-from ..ops import dct, mc, predict, quant
+from ..ops import dct, mc, motion, predict, quant
 from ..ops.commit import (_chroma_blocks, _chroma_merge, _encode_luma_i16,
                           _luma_blocks, _luma_merge, commit)
 from ..ops.deblock import _rep4, compute_strengths, deblock_frame
@@ -143,6 +149,24 @@ def _first_min_along(cost, dim=0):
 
 def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
                   shapes: bool = False, pir_cap=None):
+    """Exhaustive full-pel search (x264_tpu inter.motion_search, the ESA),
+    with motion_search_ref's arguments and result: CUDA tensors go to the
+    me_esa kernel (ops/motion.py esa_launch), one launch per pass with the
+    MVP estimate between them; CPU tensors to motion_search_ref. `lam` is
+    a host integer."""
+    if not y_src.is_cuda:
+        return motion_search_ref(padded_ref, hpel, y_src, lam, me_range,
+                                 shapes=shapes, pir_cap=pir_cap)
+    padded_ref, y_src = padded_ref.contiguous(), y_src.contiguous()
+    mv1 = motion.esa_launch(padded_ref, y_src, None, lam, me_range, False,
+                            pir_cap)
+    mvp_est, _ = mv_predictors(mv1 * 4)
+    return motion.esa_launch(padded_ref, y_src, mvp_est.contiguous(), lam,
+                             me_range, shapes, pir_cap)
+
+
+def motion_search_ref(padded_ref, hpel, y_src, lam, me_range: int,
+                      shapes: bool = False, pir_cap=None):
     """Exhaustive full-pel search (x264_tpu inter.motion_search, the ESA):
     every offset of [-R, R]^2 as a shifted-plane SAD map, in two passes.
     The first costs the MV rate against zero; the median predictor of its
@@ -221,6 +245,33 @@ def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
 
 def motion_search_seeded(padded_ref, y_src, lam, me_range: int,
                          shapes: bool = False, pir_cap=None, refine: int = 4):
+    """Hierarchical full-pel search (x264_tpu
+    inter.motion_search_seeded), with motion_search_seeded_ref's arguments
+    and result: CUDA tensors go to the me_lowres_scan kernel (stage 1) and
+    the me_refine kernel (stage 2; ops/motion.py), with the seed and its
+    MVP estimate between them; CPU tensors to motion_search_seeded_ref.
+    `lam` is a host integer."""
+    if not y_src.is_cuda:
+        return motion_search_seeded_ref(padded_ref, y_src, lam, me_range,
+                                        shapes=shapes, pir_cap=pir_cap,
+                                        refine=refine)
+    H, W = y_src.shape
+    R, M = me_range, refine
+    padded_ref, y_src = padded_ref.contiguous(), y_src.contiguous()
+    Rl = (R + 1) // 2
+    lref = mc._clamped(
+        _lowres(padded_ref[mc.PAD:mc.PAD + H, mc.PAD:mc.PAD + W]),
+        Rl + 1, Rl + 1, Rl + 1, Rl + 1)
+    bm = motion.lowres_scan_launch(_lowres(y_src), lref, Rl, lam)
+    seed = (2 * bm).clamp(-(R - M), R - M)
+    mvp_est, _ = mv_predictors(seed * 4)
+    return motion.refine_launch(padded_ref, y_src, seed, mvp_est.contiguous(),
+                                lam, M, shapes, pir_cap)
+
+
+def motion_search_seeded_ref(padded_ref, y_src, lam, me_range: int,
+                             shapes: bool = False, pir_cap=None,
+                             refine: int = 4):
     """Hierarchical full-pel search: an exhaustive half-res scan seeds a
     +-refine full-res refine per MB (x264_tpu inter.motion_search_seeded);
     pir_cap as in motion_search, on the refine only.
@@ -554,6 +605,20 @@ def _subpel_windows(hpel, mv_c, me_range: int):
 
 def subpel_refine_mc(hpel, y_src, mv_c, lam, me_range: int, radius: int = 3,
                      mvp_q=None):
+    """subpel_refine_mc_ref's refinement of one lane, with its arguments
+    and result: CUDA tensors go to the me_subpel kernel (ops/motion.py
+    subpel_launch), CPU tensors to subpel_refine_mc_ref. `lam` is a host
+    integer."""
+    if not y_src.is_cuda:
+        return subpel_refine_mc_ref(hpel, y_src, mv_c, lam, me_range,
+                                    radius=radius, mvp_q=mvp_q)
+    bq, bp, bc = _subpel_lanes_cuda(hpel, y_src, mv_c[None], lam, radius,
+                                    mvp_q)
+    return bq[0], bp[0], bc[0]
+
+
+def subpel_refine_mc_ref(hpel, y_src, mv_c, lam, me_range: int,
+                         radius: int = 3, mvp_q=None):
     """Qpel refinement of the 16x16 full-pel winners mv_c [mbh, mbw, 2]
     over the whole +-radius grid, and the luma prediction at the result
     (x264_tpu inter.subpel_refine_mc).
@@ -579,8 +644,42 @@ for _b in range(16):
                           _by >= 2 and _bx < 2, _by >= 2 and _bx >= 2]
 
 
+def _subpel_lanes_cuda(hpel, y_src, lane_mv, lam, radius, mvp_q):
+    """The me_subpel kernel over the lanes of lane_mv [L, mbh, mbw, 2],
+    each weighing the 4x4 blocks of its partition (_PART_MASKS)."""
+    dev = y_src.device
+    return motion.subpel_launch(
+        hpel.contiguous(), y_src.contiguous(), lane_mv.contiguous(),
+        const(_PART_MASKS[:lane_mv.shape[0]], dev),
+        const(_subpel_cand_table(radius), dev), lam,
+        None if mvp_q is None else mvp_q.contiguous())
+
+
 def subpel_refine_all(hpel, y_src, mvs, lam, me_range: int, radius: int = 3,
                       mvp_q=None, p8x8: bool = True):
+    """subpel_refine_all_ref's refinement of 5 or 9 lanes, with its
+    arguments and result: CUDA tensors go to the me_subpel kernel (one
+    launch for every lane, ops/motion.py subpel_launch), CPU tensors to
+    subpel_refine_all_ref. `lam` is a host integer."""
+    if not y_src.is_cuda:
+        return subpel_refine_all_ref(hpel, y_src, mvs, lam, me_range,
+                                     radius=radius, mvp_q=mvp_q, p8x8=p8x8)
+    lane_mvs = [mvs["16x16"], mvs["16x8"][:, :, 0], mvs["16x8"][:, :, 1],
+                mvs["8x16"][:, :, 0], mvs["8x16"][:, :, 1]]
+    if p8x8:
+        lane_mvs += [mvs["8x8"][:, :, q] for q in range(4)]
+    bq, bp, bc = _subpel_lanes_cuda(hpel, y_src, torch.stack(lane_mvs), lam,
+                                    radius, mvp_q)
+    pred_parts = (bp[1, :, 0:8, :], bp[2, :, 8:16, :], bp[3, :, :, 0:8],
+                  bp[4, :, :, 8:16])
+    if p8x8:
+        pred_parts += (bp[5, :, 0:8, 0:8], bp[6, :, 0:8, 8:16],
+                       bp[7, :, 8:16, 0:8], bp[8, :, 8:16, 8:16])
+    return bq[0], bp[0], bc[0], bq[1:], pred_parts, bc[1:]
+
+
+def subpel_refine_all_ref(hpel, y_src, mvs, lam, me_range: int,
+                          radius: int = 3, mvp_q=None, p8x8: bool = True):
     """Qpel refinement of the 16x16, 16x8 and 8x16 winners, and with p8x8
     of the four 8x8 quadrants, in one pass over 5 or 9 lanes (x264_tpu
     inter.subpel_refine_all).
