@@ -2,17 +2,21 @@
 """Smoke run of the PyTorch/CUDA port (x264_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --commit-ab OTHER_CHECKOUT   (see commit_ab)
+    python3 chip_smoke.py --commit-ab OTHER_CHECKOUT   (see ab)
+    python3 chip_smoke.py --motion-ab OTHER_CHECKOUT   (see ab)
 
 Phases, in the order 1, 8, 2, 4, 5, 7, 9, 10, 6 (the timed work, with
 nothing else running but the default path's decoder, at the lowest
 priority on one core), then 3 (it times nothing) and the report (any
 failure exits non-zero, stops every process the run started and prints
 no result line):
-  1. build the hand-written CUDA kernels (csrc/commit.cu and
-     csrc/deblock.cu, one nvcc each, sm_90a, linked into one library) and
-     print what ptxas reports; build and load the host CABAC writer
+  1. build the hand-written CUDA kernels (csrc/commit.cu, csrc/deblock.cu
+     and csrc/motion.cu, one nvcc each, sm_90a, linked into one library)
+     and print what ptxas reports; build and load the host CABAC writer
      (csrc/cabac.cpp, g++) beside them, all compilers started together;
+     set the integer peak from the card (SMs x 128 lane instructions a
+     clock x nvidia-smi's clocks.max.sm) and print the ESA's innermost
+     __vsadu4 loop from the library's SASS (cuobjdump -sass);
   2. hold the frame kernel (one persistent launch per frame) against its
      plain PyTorch version (commit_ref) on the card, bit-exact (tolerance
      0: every output is an integer), in the I16, I16+I4, mixed + I_4x4
@@ -57,12 +61,18 @@ no result line):
      fullpel_plain, subpel_plain) and each public search through them
      against its sequential plain version (*_ref), bit-exact, on 48x32
      tie cases (flat, period-4 texture, lam 0 and 200, me_range 4, 16
-     and 24, the PIR cap; 1, 5 and 9 qpel lanes), on the real calls of
-     the 1080p clip's P frame 2 at preset medium (both references) and
+     and 24, the PIR cap; 1, 5 and 9 qpel lanes), on the mapping's
+     branch cases (qpel lane MVs equal to the 16x16 lane's, copied and
+     distinct, windows past each plane edge, 1, 5 and 9 lanes, partition
+     masks and random weights; full-pel windows past each edge; the
+     inputs of tests/motion_branches.py), on the real calls
+     of the 1080p clip's P frame 2 at preset medium (both references) and
      of the default path's first B frame (both lists), and the ESA at
-     me_range 24 with every lane on P frame 2; each kernel timed on its
-     real 1080p inputs beside its plain version and its bound
-     (motion_phase);
+     me_range 24 with every lane on P frame 2; the share of qpel (lane,
+     4x4 block) pairs read from an earlier lane; each kernel timed on its
+     real 1080p inputs beside its plain version and its bound, the qpel
+     kernel at 9, 5 and 1 lanes, and each motion kernel's ptxas report
+     (motion_phase); no kernel's bound may exceed its time;
   3. in a pool of worker processes (each with its own CUDA context),
      beside the decoders that the cases ask for: encode a 3-frame 64x48
      all-intra clip and a 5-frame 64x48 IPPP clip
@@ -434,10 +444,16 @@ def max_abs_err(ref, got):
     return max(errs)
 
 
-def cuda_ms(torch, fn, runs):
-    """Mean device time per call (CUDA events around `runs` calls)."""
+def cuda_ms(torch, fn, runs, prefill=False):
+    """Mean device time per call (CUDA events around `runs` calls). With
+    prefill the events wait behind ~10 ms of torch.cuda._sleep, so that
+    the host has queued every call before the first starts and a call
+    shorter than its host-side launch is timed on the card alone."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if prefill:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(PREFILL_CYCLES)
     start.record()
     for _ in range(runs):
         fn()
@@ -509,9 +525,32 @@ def launch_split(torch, C, args, kw):
 
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
-# The data sheet gives no integer rate outside the tensor cores; its
-# float32 rate there (67e12 /s) is the most an int32 ALU op could reach.
-INT_OPS_PER_S = 67e12
+# The most integer instructions the card issues: each SM's four schedulers
+# issue one warp instruction (32 lanes) a clock, 128 lane operations an SM
+# a clock (the data sheet's 67e12 float32 /s counts a fused multiply-add
+# as two). main sets it from the card's SM count and its maximum SM clock
+# (nvidia-smi clocks.max.sm); the H100 SXM's 132 SMs at 1,980 MHz until
+# then. Every count of operations below is the least instructions the
+# work needs on this card.
+LANE_OPS_PER_SM_CLOCK = 128
+INT_OPS_PER_S = 132 * LANE_OPS_PER_SM_CLOCK * 1.98e9
+
+
+def set_int_peak(torch):
+    """INT_OPS_PER_S from the card: SMs x 128 x the maximum SM clock.
+    Returns (SMs, MHz)."""
+    global INT_OPS_PER_S
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    try:
+        mhz = float(r.stdout.strip().splitlines()[0])
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no maximum SM clock: {r.stdout!r} "
+             f"{r.stderr!r}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    INT_OPS_PER_S = sms * LANE_OPS_PER_SM_CLOCK * mhz * 1e6
+    return sms, mhz
 # Integer ops per reconstructed pixel: forward and inverse transform
 # (2 passes of 8 adds + 2 shifts per 4 values: 5 each), quant (abs, mul,
 # add, shift, sign: 5), dequant (2), prediction, residual, rounding and
@@ -1103,25 +1142,49 @@ def deblock_phase(torch, D, dev, rng, i_frame, p_call, b_call):
 
 
 # -------------------------------------- the motion kernels (phase 2)
-# Integer ops the searches need: per absolute difference of a SAD
-# (subtract, absolute value, add), per MB and offset for the lanes' sums
-# and the MV rate (16x16 alone, or every partition lane), and per pixel of
-# a weighed 4x4 block of a qpel candidate (the difference, the Hadamard's
-# two passes of 16 adds per 16 pixels, the absolute values and their sum,
-# and the half-pel average where the candidate has one, ~1 per pixel)
-OPS_PER_ABS_DIFF = 3
+# The least instructions the searches need on this card: a packed byte
+# SAD (__vsadu4: VABSDIFF4 with its accumulate) for four absolute
+# differences and their sum (the half-res scan's int32 values are bytes
+# too); per MB and offset, the lanes' sums and the MV rate (the 16x16 lane
+# alone, or every partition lane); per 4x4 block and qpel candidate, 16
+# dp4a (the rows' Hadamard, one per pixel, accumulated onto the source's),
+# 16 column butterflies, 16 absolute values, 8 maxima and 8 adds, and one
+# per row where two half-pel planes are averaged; per lane and candidate,
+# a multiply-add per weighed block and the MV rate and key.
+PIXELS_PER_SAD_OP = 4
 OPS_PER_OFFSET = {1: 6, 9: 16}
-OPS_PER_SATD_PIXEL = 7
+OPS_PER_SATD_BLOCK = 64
+OPS_PER_AVG_ROW = 1
+OPS_PER_LANE_CAND = 14
+
+
+def subpel_pairs(lane_mv, masks):
+    """The (lane, 4x4 block) pairs of a qpel refine over all MBs: those
+    its masks weigh, and those me_subpel_kernel computes (a weighed pair
+    whose SATDs no earlier lane with the same full-pel MV computes: the
+    first lane with that MV that weighs the block). lane_mv [L, mbh, mbw,
+    2], masks [L, 16]. Returns (weighed, computed), each a count."""
+    import torch
+    L = lane_mv.shape[0]
+    mv = lane_mv.reshape(L, -1, 2)
+    w = masks != 0                                      # [L, 16]
+    same = (mv[:, None] == mv[None]).all(-1)            # [j, l, n]
+    order = torch.arange(L, device=mv.device)
+    before = (order[:, None] < order[None, :])[:, :, None]
+    # [j, l, n, 16]: lane j, before lane l and with its MV, weighs the block
+    shared = (same & before)[..., None] & w[:, None, None, :]
+    weighed = int(w.sum()) * mv.shape[1]
+    return weighed, weighed - int((shared.any(0) & w[:, None, :]).sum())
 
 
 def motion_bound(name, args, out):
     """Least time the card could take for one launch of motion kernel
     `name` with the wrapper's arguments `args` and its outputs `out`: the
     larger of the bytes it must move (each input tensor read once, each
-    output written once) over the memory rate, and the integer ops of
-    this launch's candidates over the ALU rate; the qpel refine counts
-    only the 4x4 blocks its lanes' masks weigh, as it computes only those.
-    Returns (bound_ms, bound_by, bytes, ops)."""
+    output written once) over the memory rate, and the instructions of
+    this launch's candidates over the issue rate; the qpel refine counts
+    only the 4x4 blocks that need computing (subpel_pairs), as it computes
+    only those. Returns (bound_ms, bound_by, bytes, ops)."""
     import torch
     ins = [a for a in args if isinstance(a, torch.Tensor)]
     outs = list(out.values()) if isinstance(out, dict) else (
@@ -1130,20 +1193,101 @@ def motion_bound(name, args, out):
     if name == "me_lowres_scan":
         lsrc, _, rl = args[:3]
         n, k = lsrc.numel() // 64, (2 * rl + 1) ** 2
-        ops = n * k * (64 * OPS_PER_ABS_DIFF + OPS_PER_OFFSET[1])
+        ops = n * k * (64 // PIXELS_PER_SAD_OP + OPS_PER_OFFSET[1])
     elif name in ("me_refine", "me_esa"):
         y, radius, shapes = args[1], args[-3], args[-2]
         n, k = y.numel() // 256, (2 * radius + 1) ** 2
-        ops = n * k * (256 * OPS_PER_ABS_DIFF
+        ops = n * k * (256 // PIXELS_PER_SAD_OP
                        + OPS_PER_OFFSET[9 if shapes else 1])
     else:
-        y, masks, tab = args[1], args[3], args[4]
-        blocks = int((masks != 0).sum())
-        ops = (y.numel() // 256) * tab.shape[0] * blocks * 16 \
-            * OPS_PER_SATD_PIXEL
+        lane_mv, masks, tab = args[2], args[3], args[4]
+        n, cands = args[1].numel() // 256, tab.shape[0]
+        _, pairs = subpel_pairs(lane_mv, masks)
+        ops = pairs * (cands * OPS_PER_SATD_BLOCK
+                       + 4 * OPS_PER_AVG_ROW * int((tab[:, 8] != 0).sum()))
+        ops += n * cands * (int((masks != 0).sum())
+                            + masks.shape[0] * OPS_PER_LANE_CAND)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def ptxas_report(build_log):
+    """Each kernel's ptxas report in the library's build.log, by mangled
+    name: registers, static shared memory, stack frame and spill bytes."""
+    import re
+    out, name = {}, None
+    with open(build_log) as f:
+        for line in f:
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                name = m.group(1)
+                out[name] = {}
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and name:
+                out[name].update(stack_bytes=int(m[1]),
+                                 spill_bytes=int(m[2]) + int(m[3]))
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m and name:
+                out[name].update(registers=int(m[1]), smem_bytes=int(m[2]))
+    return out
+
+
+def motion_ptxas(ptxas, name, args=None):
+    """The ptxas report of motion kernel `name` (a MOTION_KERNELS name);
+    the full-pel kernels' instantiation is the one these wrapper
+    arguments launch (9 lanes where they ask for shapes)."""
+    part = {"me_lowres_scan": "me_lowres_scan_kernel",
+            "me_subpel": "me_subpel_kernel"}.get(name)
+    if part is None:
+        lanes = 9 if args[-2] else 1
+        part = (f"me_fullpel_kernelILi{96 if name == 'me_refine' else 256}"
+                f"ELi{lanes}E")
+    hits = [v for k, v in ptxas.items() if part in k]
+    if len(hits) != 1:
+        fail(f"build.log: {len(hits)} ptxas reports match {part}")
+    return hits[0]
+
+
+def sass_loop(lib, kernel, opcode="VABSDIFF4"):
+    """The innermost loop of `kernel` (part of its mangled name) in the
+    library's SASS (cuobjdump -sass) that holds `opcode`: (its
+    instructions, how many are `opcode`, their opcodes counted), or the
+    reason it could not be read."""
+    import collections
+    import re
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return "cuobjdump not found"
+    r = subprocess.run([exe, "-sass", lib], capture_output=True, text=True,
+                       timeout=300)
+    bodies = [sec for sec in r.stdout.split("Function : ")[1:]
+              if kernel in sec.split("\n", 1)[0]]
+    if len(bodies) != 1:
+        return f"{len(bodies)} SASS functions match {kernel}"
+    ins = []                                    # (address, opcode, text)
+    for line in bodies[0].splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);", line)
+        if m:
+            ins.append((int(m[1], 16), m[2], m[3]))
+    loops = []
+    for at, op, rest in ins:
+        to = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") \
+            else None
+        if to and int(to[1], 16) < at:
+            body = [i for i in ins if int(to[1], 16) <= i[0] <= at]
+            hits = sum(i[1].startswith(opcode) for i in body)
+            if hits:
+                loops.append((len(body), hits, body))
+    if not loops:
+        return f"no loop of {kernel} holds {opcode}"
+    size, hits, body = min(loops, key=lambda x: x[0])
+    return size, hits, dict(collections.Counter(
+        i[1].split(".")[0] for i in body).most_common())
 
 
 def nested_err(ref, got):
@@ -1265,13 +1409,25 @@ def motion_phase(torch, dev, clip, b_calls):
     (the seeded search and the 9-lane refine against both references, as
     the encoder's dispatch made them) and of the default path's first B
     frame (the ESA and the 1-lane refine of both lists, `b_calls`); the
-    ESA at me_range 24 with every lane (tesa's range) on P frame 2. Then
-    each kernel timed on its real 1080p inputs (CUDA events, 2 x 20
-    launches after 3; the B frame's second ESA pass for me_esa, P frame
-    2's first reference for the others) beside its plain version (one
-    run) and its bound. Returns what the report reads."""
+    ESA at me_range 24 with every lane (tesa's range) on P frame 2. The
+    branches of the kernels' mapping (tests/motion_branches.py, the inputs
+    tests/test_torch_motion.py holds against x264_tpu):
+    subpel_lane_cases (lane MVs equal, copied and distinct, windows past
+    each edge; 1, 5 and 9 lanes; the partition masks and random weights
+    0-3) and refine_edge_cases. Then each kernel timed on its real 1080p
+    inputs (CUDA events, 2 x 20 launches after 3, queued behind a
+    torch.cuda._sleep so that the card's time is read; the B frame's
+    second ESA pass for me_esa, P frame 2's first reference for the
+    others) beside its plain version (one run) and its bound, and
+    me_subpel at 9, 5 and 1 of that reference's lanes. Returns what the
+    report reads."""
+    import numpy as np
+    from x264_tpu_torch.device import const
     from x264_tpu_torch.encoder import inter
     from x264_tpu_torch.encoder.encoder import TYPE_IDR, TYPE_P, Encoder
+    from x264_tpu_torch.ops import motion as MO
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from motion_branches import refine_edge_cases, subpel_lane_cases
     worst = {name: 0 for name, _, _ in MOTION_KERNELS}
     whole = {}
     timed = {}
@@ -1315,6 +1471,46 @@ def motion_phase(torch, dev, clip, b_calls):
         f"cases at 48x32: max_abs_err {worst} (tolerance 0); searches vs "
         f"*_ref {whole}")
 
+    def against_plain(name, label, want, got):
+        err = nested_err(want, got)
+        worst[name] = max(worst[name], err)
+        if err != 0:
+            fail(f"phase 2 {name} disagrees with its plain version "
+                 f"({label}): max_abs_err {err}")
+
+    tab = const(inter._subpel_cand_table(3), dev)
+    rng = np.random.default_rng(4)
+    n_branch = 0
+    mov = moving_frames(2, 48, 32, seed=11)
+    pair = (mov[1][0], mov[0][0], dev)
+    for label, y, hp, mv, mvp, lam in subpel_lane_cases(*pair):
+        lanes = mv.shape[0]
+        for masks in (inter._PART_MASKS[:lanes],
+                      rng.integers(0, 4, (lanes, 16)).astype(np.int32)):
+            a = (hp, y, mv, const(masks, dev), tab, lam, mvp)
+            want = MO.subpel_plain(*a)
+            against_plain("me_subpel", label, want, MO.subpel_launch(*a))
+            n_branch += 1
+        if lanes == 1:
+            check(label, "subpel_mc", (hp, y, mv[0], lam, 4), {})
+        else:
+            mvs = {"16x16": mv[0], "16x8": torch.stack([mv[1], mv[2]], 2),
+                   "8x16": torch.stack([mv[3], mv[4]], 2),
+                   "8x8": torch.stack(list(mv[5:]) if lanes == 9
+                                      else [mv[0]] * 4, 2)}
+            check(label, "subpel_all", (hp, y, mvs, lam, 4),
+                  {"mvp_q": mvp, "p8x8": lanes == 9})
+    for label, launch, plain, a in refine_edge_cases(*pair):
+        against_plain("me_refine" if launch is MO.refine_launch
+                      else "me_esa", label, plain(*a), launch(*a))
+        n_branch += 1
+    torch.cuda.synchronize()
+    log(f"phase 2 the kernels' branch cases at 48x32 ({n_branch} launches "
+        f"each: qpel lanes equal, copied and distinct, windows past each "
+        f"edge, 1, 5 and 9 lanes, partition masks and random weights; "
+        f"full-pel windows past each edge): max_abs_err {worst} (tolerance "
+        f"0); searches vs *_ref {whole}")
+
     # P frame 2 of the 1080p clip at preset medium: its searches' calls
     h, w = clip[0][0].shape
     enc = Encoder(ippp_params(w, h), device=dev)
@@ -1353,21 +1549,48 @@ def motion_phase(torch, dev, clip, b_calls):
     log(f"phase 2 motion kernels vs their plain versions, 1080p P frame 2 "
         f"(2 references), its ESA at me_range 24 and the B frame's 2 lists: "
         f"max_abs_err {worst} (tolerance 0); searches vs *_ref {whole}")
+    pairs = [subpel_pairs(*motion_parts("subpel_all", qa, qkw)[0][0][3][2:4])
+             for qa, qkw in subpel_calls]
+    reused = sum(w - c for w, c in pairs) / sum(w for w, _ in pairs)
+    log(f"phase 2 me_subpel on 1080p P frame 2: of the weighed (lane, 4x4 "
+        f"block) pairs, {reused:.4f} read the SATDs of an earlier lane with "
+        f"the same full-pel MV (references 0 / 1: (weighed, computed) "
+        f"{pairs})")
 
-    out = {"worst": worst, "whole": whole}
+    out = {"worst": worst, "whole": whole, "pairs_reused": reused,
+           "pairs": pairs}
     for name, (label, launch, plain, a, got) in timed.items():
         plain_ms = cuda_ms(torch, lambda: plain(*a), 1)
         cuda_ms(torch, lambda: launch(*a), 3)            # warm-up
-        runs = [cuda_ms(torch, lambda: launch(*a), 20) for _ in range(2)]
+        runs = [cuda_ms(torch, lambda: launch(*a), 20, prefill=True)
+                for _ in range(2)]
         bound_ms, bound_by, nbytes, ops = motion_bound(name, a, got)
         ms = sum(runs) / len(runs)
         out[name] = {"ms": ms, "runs": runs, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bytes": nbytes, "ops": ops, "shape": label}
+                     "bytes": nbytes, "ops": ops, "shape": label, "args": a}
         log(f"phase 2 {name} on {label} (CUDA events, 20 launches each): "
             f"{runs[0]:.4f} / {runs[1]:.4f} ms; plain version {plain_ms:.1f} "
             f"ms (1 run); bound {bound_ms * 1e3:.3f} us by {bound_by} "
-            f"({nbytes} bytes, {ops} integer ops)")
+            f"({nbytes} bytes, {ops} instructions), "
+            f"{bound_ms / ms:.4f} of it")
+    # me_subpel on the first L lanes of P frame 2's reference 0
+    label, _, _, a, _ = timed["me_subpel"]
+    out["lanes"] = {}
+    for lanes in (9, 5, 1):
+        la = (a[0], a[1], a[2][:lanes].contiguous(),
+              a[3][:lanes].contiguous(), *a[4:])
+        want = MO.subpel_plain(*la)
+        against_plain("me_subpel", f"{label}, {lanes} lanes", want,
+                      MO.subpel_launch(*la))
+        cuda_ms(torch, lambda: MO.subpel_launch(*la), 3)
+        ms = [cuda_ms(torch, lambda: MO.subpel_launch(*la), 20,
+                      prefill=True) for _ in range(2)]
+        bound_ms = motion_bound("me_subpel", la, want)[0]
+        out["lanes"][lanes] = {"ms": ms, "bound_ms": bound_ms}
+        log(f"phase 2 me_subpel at {lanes} lanes of {label} (CUDA events, "
+            f"20 launches each): {ms[0]:.4f} / {ms[1]:.4f} ms; bound "
+            f"{bound_ms * 1e3:.3f} us")
     return out
 
 
@@ -2172,11 +2395,21 @@ def main():
     log(f"phase 1 build: csrc/cabac.cpp (g++, started with nvcc) built and "
         f"loaded in {cabac_build['s']:.2f} s")
     build_log = os.path.join(os.path.dirname(lib), "build.log")
-    if os.path.exists(build_log):
-        with open(build_log) as f:
-            for line in f:
-                if "registers" in line or "Compiling entry" in line:
-                    log("phase 1 ptxas: " + line.strip())
+    with open(build_log) as f:
+        for line in f:
+            if "registers" in line or "Compiling entry" in line:
+                log("phase 1 ptxas: " + line.strip())
+    ptxas = ptxas_report(build_log)
+    sms, mhz = set_int_peak(torch)
+    log(f"phase 1 integer peak: {sms} SMs x {LANE_OPS_PER_SM_CLOCK} lane "
+        f"instructions a clock x {mhz:.0f} MHz (nvidia-smi clocks.max.sm) = "
+        f"{INT_OPS_PER_S:.4e} /s")
+    esa_loop = sass_loop(lib, "me_fullpel_kernelILi256ELi1E")
+    log("phase 1 SASS of me_fullpel_kernel<256, 1> (the ESA), its "
+        "innermost loop with __vsadu4: " + (esa_loop if isinstance(
+            esa_loop, str) else f"{esa_loop[0]} instructions, "
+            f"{esa_loop[1]} VABSDIFF4 (motion_bound counts 1 a VABSDIFF4 "
+            f"and {OPS_PER_OFFSET[1]} an offset): {json.dumps(esa_loop[2])}"))
 
     mark("1 build")
     clip = synth_clip(max(N_DEFAULT_FRAMES, N_PIR_FRAMES))
@@ -2373,6 +2606,10 @@ def main():
         fail(f"the default path's first B frame made {len(b_esa)} ESA and "
              f"{len(b_subpel)} qpel refine calls, expected 2 each")
     mot = motion_phase(torch, dev, clip, (b_esa, b_subpel))
+    mot["ptxas"] = {k: motion_ptxas(ptxas, k, mot.get(k, {}).get("args"))
+                    for k, _, _ in MOTION_KERNELS}
+    for k, report in mot["ptxas"].items():
+        log(f"phase 2 ptxas {k}: {json.dumps(report)}")
     del b_esa, b_subpel
     mark("2 the motion kernels")
 
@@ -2625,7 +2862,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "commit_frame_kernel", "route": "cuda",
         "source": "x264_tpu_torch/csrc/commit.cu",
         "replaces": "x264_tpu/ops/pallas/commit.py:672",
@@ -2703,13 +2940,26 @@ def main():
         "max_abs_err": mot["worst"][name], "ms": mot[name]["ms"],
         "plain_ms": mot[name]["plain_ms"], "bound_ms": mot[name]["bound_ms"],
         "bound_by": mot[name]["bound_by"], "library_ms": None,
+        "bound_share": mot[name]["bound_ms"] / mot[name]["ms"],
+        **{k: mot["ptxas"][name][k] for k in ("registers", "smem_bytes",
+                                              "spill_bytes")},
         "shape": mot[name]["shape"],
-        "launches_per_path": {k: v[name] for k, v in motion.items()}}
-        for name, _, replaces in MOTION_KERNELS]}))
+        "launches_per_path": {k: v[name] for k, v in motion.items()},
+        **({"lanes_ms": {str(n): {"ms": sum(t["ms"]) / 2,
+                                  "bound_ms": t["bound_ms"]}
+                         for n, t in mot["lanes"].items()},
+            "pairs_reused": mot["pairs_reused"]}
+           if name == "me_subpel" else {})}
+        for name, _, replaces in MOTION_KERNELS]
+    over = [k["name"] for k in kernels if k["bound_ms"] > k["ms"]]
+    if over:
+        fail(f"bound above the measured time (the count is no lower "
+             f"bound): {over}")
+    log(json.dumps({"kernels": kernels}))
     log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
         else f"nvidia-smi: {smi.stderr.strip()}")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
@@ -3244,29 +3494,90 @@ def commit_ab_child(tree):
     print(json.dumps({"tree": tree, "variants": out}), flush=True)
 
 
-def commit_ab(other):
-    """--commit-ab OTHER: the commit kernel's single-frame launch of the
-    checkout at OTHER (for example the parent commit, unpacked with git
-    archive into a directory that .gitignore lists) against this one's, on
-    one card, each in a process of its own in the order other, this,
-    this, other (commit_ab_child). Fails unless every run's outputs are
-    the same. Prints each run, each variant's mean times and change, and
-    the card's name and power limit."""
+MOTION_AB_VARIANTS = ("me_lowres_scan", "me_refine", "me_esa",
+                      "me_subpel")
+
+
+def motion_ab_child(tree):
+    """One side of --motion-ab: build the motion kernels of the checkout
+    at `tree` and time each on the 1080p inputs of phase 2's P frame 2,
+    reference 0 (preset medium): the seeded search's two launches, the
+    9-lane qpel refine, and the ESA's second pass at me_range 16 (16x16
+    lane). 3 warm-up launches, then 2 x 20 launches (CUDA events, queued
+    behind a torch.cuda._sleep). Prints one JSON line: each kernel's times
+    and a digest of its outputs."""
+    import hashlib
+    import torch
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import x264_tpu_torch
+    if not os.path.abspath(x264_tpu_torch.__file__).startswith(tree + os.sep):
+        fail(f"--motion-ab: imported {x264_tpu_torch.__file__}, not {tree}")
+    from bench import synth_clip
+    from x264_tpu_torch.encoder import inter
+    from x264_tpu_torch.encoder.encoder import TYPE_IDR, TYPE_P, Encoder
+    from x264_tpu_torch.ops import motion as MO
+    dev = torch.device("cuda")
+    MO._library()
+    clip = synth_clip(3)
+    enc = Encoder(ippp_params(1920, 1080), device=dev)
+    enqueue(enc, clip[0], TYPE_IDR, 0)
+    enqueue(enc, clip[1], TYPE_P, 1)
+    seeded, subpel = [], []
+    restore = [capture_calls(inter, "motion_search_seeded", seeded, 1),
+               capture_calls(inter, "subpel_refine_all", subpel, 1)]
+    enqueue(enc, clip[2], TYPE_P, 2)
+    for r in restore:
+        r()
+    (sa, skw), (qa, qkw) = seeded[0], subpel[0]
+    parts = motion_parts("seeded", sa, skw)[0]
+    yp, y, lam = sa[:3]
+    mv1 = MO.fullpel_plain(yp, y, None, None, lam, 16, False)
+    mvp = inter.mv_predictors(mv1 * 4)[0].contiguous()
+    launches = {name: (launch, a) for name, launch, _, a in parts}
+    launches["me_esa"] = (MO.esa_launch, (yp, y, mvp, lam, 16, False))
+    _, launch, _, a = motion_parts("subpel_all", qa, qkw)[0][0]
+    launches["me_subpel"] = (launch, a)
+    out = {}
+    for name in MOTION_AB_VARIANTS:
+        launch, a = launches[name]
+        cuda_ms(torch, lambda: launch(*a), 3)
+        runs = [cuda_ms(torch, lambda: launch(*a), 20, prefill=True)
+                for _ in range(2)]
+        digest = hashlib.sha256()
+        got = launch(*a)
+        for t in (got.values() if isinstance(got, dict) else
+                  got if isinstance(got, tuple) else [got]):
+            digest.update(t.cpu().numpy().tobytes())
+        out[name] = {"ms": runs, "digest": digest.hexdigest()[:16]}
+    print(json.dumps({"tree": tree, "variants": out}), flush=True)
+
+
+def ab(kind, other):
+    """--commit-ab / --motion-ab OTHER: the commit kernel's single-frame
+    launch (commit_ab_child), or the motion kernels (motion_ab_child), of
+    the checkout at OTHER (for example the parent commit, unpacked with
+    git archive into a directory that .gitignore lists) against this
+    one's, on one card, each in a process of its own in the order other,
+    this, this, other. Fails unless every run's outputs are the same.
+    Prints each run, each variant's mean times and change, and the card's
+    name and power limit."""
+    variants = {"commit": AB_VARIANTS, "motion": MOTION_AB_VARIANTS}[kind]
     runs = []
     for tree in (other, ROOT, ROOT, other):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--commit-ab-child", tree], capture_output=True,
+                            f"--{kind}-ab-child", tree], capture_output=True,
                            text=True, timeout=900)
         if r.returncode != 0:
-            fail(f"--commit-ab run in {tree} exited {r.returncode}:\n"
+            fail(f"--{kind}-ab run in {tree} exited {r.returncode}:\n"
                  f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
         runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
-        log(f"commit_ab {'other' if tree == other else 'this'}: "
+        log(f"{kind}_ab {'other' if tree == other else 'this'}: "
             + json.dumps(runs[-1]))
     summary = {}
-    for variant in AB_VARIANTS:
+    for variant in variants:
         if len({run["variants"][variant]["digest"] for run in runs}) != 1:
-            fail(f"--commit-ab: the {variant} outputs differ between runs")
+            fail(f"--{kind}-ab: the {variant} outputs differ between runs")
         ms = {side: [t for run in pair for t in run["variants"][variant]["ms"]]
               for side, pair in (("other", (runs[0], runs[3])),
                                  ("this", (runs[1], runs[2])))}
@@ -3277,13 +3588,16 @@ def commit_ab(other):
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     log(smi.stdout.strip())
-    log(json.dumps({"commit_ab": summary}))
+    log(json.dumps({f"{kind}_ab": summary}))
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--commit-ab"]:
-        commit_ab(os.path.abspath(sys.argv[2]))
+    if sys.argv[1:2] in (["--commit-ab"], ["--motion-ab"]):
+        ab("commit" if sys.argv[1] == "--commit-ab" else "motion",
+           os.path.abspath(sys.argv[2]))
     elif sys.argv[1:2] == ["--commit-ab-child"]:
         commit_ab_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--motion-ab-child"]:
+        motion_ab_child(sys.argv[2])
     else:
         main()

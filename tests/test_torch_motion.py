@@ -18,13 +18,22 @@ me_range, 24 (where the most offsets tie); the seeded search and the qpel
 refine at 4 (the seeds clamp to 0) and, on the moving clip, at 24.
 me_range 16, the default, is held against x264_tpu by the encode tests
 (tests/test_torch_inter.py, tests/test_torch_bframe*.py) and against the
-kernels by chip_smoke.py."""
+kernels by chip_smoke.py.
+
+The branches of the kernels' mapping have cases of their own, made by
+tests/motion_branches.py (chip_smoke.py meets the kernels with the same
+inputs on the card): qpel lanes whose full-pel MVs equal the 16x16
+lane's, copy another lane's or differ (the me_subpel kernel computes a
+(lane, 4x4 block) once per distinct MV), windows past the plane's edges
+(the kernels' clamp path), at 1, 5 and 9 lanes; and the ESA at me_range
+32, whose windows reach the plane's right edge."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from motion_branches import LANE_KINDS, refine_edge_cases, subpel_lane_cases
 from test_inter_e2e import moving_frames
 from test_torch_inter import _eq, _ref_entry, _t
 from x264_tpu.encoder import inter as jinter
@@ -237,6 +246,148 @@ def test_subpel_matches_x264_tpu(lanes, name):
     _eq(want[5], bc[1:])
 
 
+def test_esa_to_the_plane_edge_matches_x264_tpu():
+    """The ESA at me_range 32, the largest the kernel takes: the last MB
+    column's window reaches the padded plane's right edge, so the kernel
+    loads it through its clamp path. x264_tpu == motion_search_ref == the
+    kernel's order, every lane."""
+    y, jref, tref, lam, _, _ = _case("moving")
+    want = _jax_esa(jref["y_pad"], None, jnp.asarray(y), lam, 32, True,
+                    _jax_cap(None))
+    got = tinter.motion_search(tref["y_pad"], None, _t(y), lam, 32,
+                               shapes=True)
+    _eq_fields(want, got, _esa_plain(tref, _t(y), lam, 32, None, True))
+
+
+def test_fullpel_plain_clamps_windows_past_the_edges():
+    """fullpel_plain (the me_fullpel kernel's order) around seeds 20-40
+    pixels past each edge of the plane (motion_branches.refine_edge_cases,
+    the inputs the kernel meets on the card): every window row and column
+    clamped to the padded plane, each lane the first least (SAD + MV
+    rate) in scan order, against numpy written out offset by offset."""
+    n = 0
+    for label, launch, plain, args in refine_edge_cases(*_lane_pair("cpu")):
+        if launch is not tmotion.refine_launch:   # the ESA: tested above
+            continue
+        yp, y, seed, mvp, lam, radius, shapes = args
+        got = plain(*args)
+        got = got if shapes else {"16x16": got}
+        ref, src = yp.numpy().astype(np.int64), y.numpy().astype(np.int64)
+        for my, mx in np.ndindex(MBH, MBW):
+            best = {}
+            for dy, dx in np.ndindex(2 * radius + 1, 2 * radius + 1):
+                mv = (int(seed[my, mx, 0]) + dx - radius,
+                      int(seed[my, mx, 1]) + dy - radius)
+                rows = np.clip(mc.PAD + 16 * my + mv[1] + np.arange(16), 0,
+                               ref.shape[0] - 1)
+                cols = np.clip(mc.PAD + 16 * mx + mv[0] + np.arange(16), 0,
+                               ref.shape[1] - 1)
+                q = np.abs(ref[rows][:, cols]
+                           - src[16 * my:16 * my + 16, 16 * mx:16 * mx + 16]
+                           ).reshape(2, 8, 2, 8).sum((1, 3)).reshape(4)
+                rate = lam * (tinter._mv_bits(4 * mv[0] - int(mvp[my, mx, 0]))
+                              + tinter._mv_bits(4 * mv[1]
+                                                - int(mvp[my, mx, 1])))
+                costs = {"16x16": [q.sum()],
+                         "16x8": [q[0] + q[1], q[2] + q[3]],
+                         "8x16": [q[0] + q[2], q[1] + q[3]], "8x8": q}
+                for key in got:
+                    for part, c in enumerate(costs[key]):
+                        if c + rate < best.get((key, part), (1 << 30,))[0]:
+                            best[key, part] = (c + rate, mv)
+            for (key, part), (_, mv) in best.items():
+                at = got[key][my, mx]
+                assert tuple((at if key == "16x16" else at[part]).tolist()) \
+                    == mv, (label, key, part)
+        n += 1
+    assert n == 4
+
+
+def _lane_pair(dev):
+    """The 48x32 (current, reference) luma pair of the branch cases, and
+    the device."""
+    frames = moving_frames(2, W, H, seed=11)
+    return frames[1][0], frames[0][0], torch.device(dev)
+
+
+def _wrapped_windows(lane_mv):
+    """[L, n] bool: the (lane, MB)s whose 24x24 qpel window starts left of
+    or above the padded plane, where x264_tpu's jnp gather wraps the
+    negative index and the port clamps it."""
+    mv = lane_mv.numpy().reshape(lane_mv.shape[0], -1, 2)
+    my, mx = np.divmod(np.arange(MBH * MBW), MBW)
+    return ((mc.PAD + 16 * mx + mv[..., 0] - tinter.SUBPEL_MARG < 0)
+            | (mc.PAD + 16 * my + mv[..., 1] - tinter.SUBPEL_MARG < 0))
+
+
+def _per_lane(out, lanes):
+    """A qpel refine's result as one (MVs [n, 2], prediction, costs [n])
+    per lane: subpel_refine_mc's (mv, pred, cost), or subpel_refine_all's
+    16x16 lane and then its partition lanes."""
+    if lanes == 1:
+        return [tuple(out)]
+    return [tuple(out[:3])] + [(out[3][k], out[4][k], out[5][k])
+                               for k in range(lanes - 1)]
+
+
+LANE_CASES = [(kind, lanes) for kind in LANE_KINDS for lanes in (1, 5, 9)]
+
+
+@pytest.mark.parametrize("kind,lanes", LANE_CASES)
+def test_subpel_lanes_match_x264_tpu(kind, lanes):
+    """The qpel refine at lane MVs that equal the 16x16 lane's, copy
+    another lane's or differ, and past the plane's edges, at 1 lane
+    (subpel_refine_mc, no MVP), 5 and 9 (subpel_refine_all with an MVP;
+    motion_branches.subpel_lane_cases): subpel_plain (the me_subpel kernel's
+    order) == the port's *_ref == x264_tpu. Where a lane's window starts
+    left of or above the padded plane, x264_tpu's jnp gather wraps the
+    negative index and the port clamps it (ROADMAP F9; the encoder's
+    searches reach no edge, |mv| <= me_range <= PAD - 8): x264_tpu is held
+    to the port on every other (lane, MB), and the edge_near cases must
+    have (lane, MB)s of both kinds."""
+    label = f"48x32 lanes {kind}, L {lanes}"
+    y, hp, mv, mvp, lam = next(c[1:] for c in subpel_lane_cases(
+        *_lane_pair("cpu")) if c[0] == label)
+    tab = _t(tinter._subpel_cand_table(3))
+    bq, bp, bc = tmotion.subpel_plain(hp, y, mv,
+                                      _t(tinter._PART_MASKS[:lanes]), tab,
+                                      lam, mvp)
+    jhp, jy = jnp.asarray(hp.numpy()), jnp.asarray(y.numpy())
+    if lanes == 1:
+        got = tinter.subpel_refine_mc_ref(hp, y, mv[0], lam, REFINE)
+        for g, p in zip(got, (bq, bp, bc)):
+            _eq(g, p[0])
+        want = _jax_subpel_mc(jhp, jy, jnp.asarray(mv[0].numpy()), lam,
+                              me_range=REFINE)
+    else:
+        mvs = {"16x16": mv[0], "16x8": torch.stack([mv[1], mv[2]], 2),
+               "8x16": torch.stack([mv[3], mv[4]], 2),
+               "8x8": torch.stack(list(mv[5:]) if lanes == 9
+                                  else [mv[0]] * 4, 2)}
+        got = tinter.subpel_refine_all_ref(hp, y, mvs, lam, REFINE,
+                                           mvp_q=mvp, p8x8=lanes == 9)
+        _eq(got[0], bq[0])
+        _eq(got[1], bp[0])
+        _eq(got[2], bc[0])
+        _eq(got[3], bq[1:])
+        _eq(got[5], bc[1:])
+        want = _jax_subpel_all(jhp, jy, {k: jnp.asarray(v.numpy())
+                                         for k, v in mvs.items()},
+                               lam, me_range=REFINE,
+                               mvp_q=jnp.asarray(mvp.numpy()),
+                               p8x8=lanes == 9)
+    wrapped = _wrapped_windows(mv)
+    if kind == "edge_near":
+        assert wrapped.any() and not wrapped.all(), wrapped
+    else:
+        assert not wrapped.any(), wrapped
+    for lane, (w_lane, g_lane) in enumerate(zip(_per_lane(want, lanes),
+                                                _per_lane(got, lanes))):
+        keep = ~wrapped[lane]
+        for w_, g in zip(w_lane, g_lane):
+            _eq(np.asarray(w_)[keep], g.numpy()[keep], f"lane {lane}")
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """On CPU tensors the public searches are their *_ref bodies and
     launch nothing."""
@@ -363,3 +514,33 @@ def test_motion_kernels_match_their_plain_versions(cuda_device, name):
     torch.cuda.synchronize()
     assert [fn.launches - a for fn, a in zip(tmotion.LAUNCHES, n0)] == \
         [1, 1, 2, 2]
+
+
+def test_subpel_launch_takes_at_most_nine_lanes(no_library, monkeypatch):
+    """subpel_launch (one block per MB over every lane) raises on a tenth
+    lane before it reaches the library."""
+    fn, args = _launch_inputs()["subpel"]
+    monkeypatch.setattr(tmotion, "_device", lambda t, name: t.device)
+    args[2] = args[2].expand(10, -1, -1, -1).contiguous()
+    args[3] = args[3].expand(10, -1).contiguous()
+    with pytest.raises(ValueError, match="L <= 9"):
+        fn(*args)
+
+
+@pytest.mark.cuda
+def test_subpel_kernels_match_on_the_lane_cases(cuda_device):
+    """me_subpel_kernel against subpel_plain on the card, tolerance 0, on
+    every lane case (equal, copied and distinct lane MVs, windows past
+    each edge; 1, 5 and 9 lanes), with the lanes' partition masks and with
+    random weights 0-3."""
+    tab = _t(tinter._subpel_cand_table(3)).to(cuda_device)
+    rng = np.random.default_rng(4)
+    for label, y, hp, mv, mvp, lam in subpel_lane_cases(
+            *_lane_pair(cuda_device)):
+        lanes = mv.shape[0]
+        for masks in (tinter._PART_MASKS[:lanes],
+                      rng.integers(0, 4, (lanes, 16)).astype(np.int32)):
+            args = (hp, y, mv, _t(masks).to(cuda_device), tab, lam, mvp)
+            want = tmotion.subpel_plain(*args)
+            for w_, g in zip(want, tmotion.subpel_launch(*args)):
+                _eq(w_.cpu(), g.cpu(), label)

@@ -7,8 +7,8 @@ compiled search scans (x264_tpu/encoder/inter.py).
   scan around each MB's seed (`me_fullpel_kernel`);
 - `esa_launch`: one pass of the exhaustive search over [-R, R]^2 (the
   same kernel, centred on 0);
-- `subpel_launch`: the qpel refine of L partition lanes over the
-  candidate table (`me_subpel_kernel`).
+- `subpel_launch`: the qpel refine of L <= 9 partition lanes over the
+  candidate table (`me_subpel_kernel`, one block per MB over every lane).
 
 Each wrapper checks its tensors (device, dtype, shape, contiguity) before
 it touches the library, allocates the outputs with torch.empty, launches
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "subpel": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _I,
                _P, _P, _P],
 }
+MAX_SUBPEL_LANES = 9
 
 
 def _library():
@@ -176,7 +177,7 @@ def esa_launch(padded_ref, y_src, mvp, lam: int, me_range: int,
 
 
 def subpel_launch(hpel, y_src, lane_mv, masks, tab, lam: int, mvp_q=None):
-    """_subpel_refine_scan over L lanes, reading the half-pel planes
+    """_subpel_refine_scan over L <= 9 lanes, reading the half-pel planes
     directly: hpel [4, H + 2 PAD, W + 2 PAD] uint8; y_src [H, W] uint8;
     lane_mv [L, mbh, mbw, 2] full-pel; masks [L, 16] int32 over the raster
     4x4 blocks; tab [K, 9] int32 (_subpel_cand_table, K <= 49); mvp_q [n,
@@ -192,10 +193,10 @@ def subpel_launch(hpel, y_src, lane_mv, masks, tab, lam: int, mvp_q=None):
     n = mbh * mbw
     lanes = lane_mv.shape[0] if lane_mv.dim() == 4 else 0
     cands = tab.shape[0] if tab.dim() == 2 else 0
-    if not lanes or not 1 <= cands <= 49:
+    if not 1 <= lanes <= MAX_SUBPEL_LANES or not 1 <= cands <= 49:
         raise ValueError(f"lane_mv {tuple(lane_mv.shape)} / tab "
-                         f"{tuple(tab.shape)}: expected [L, mbh, mbw, 2] and "
-                         f"[K <= 49, 9]")
+                         f"{tuple(tab.shape)}: expected [L <= "
+                         f"{MAX_SUBPEL_LANES}, mbh, mbw, 2] and [K <= 49, 9]")
     check_tensor(y_src, "y_src", (h, w), _u8, dev)
     check_tensor(hpel, "hpel", (4, h + 2 * PAD, w + 2 * PAD), _u8, dev)
     check_tensor(lane_mv, "lane_mv", (lanes, mbh, mbw, 2), _i32, dev)

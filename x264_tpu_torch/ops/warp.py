@@ -18,8 +18,10 @@ def mb_windows_ref(planes, off, *, bs: int, win: int, pad: int):
     offset, in the planes' dtype.
 
     The callers' motion ranges keep every index inside the padded planes;
-    a row or column index that strayed would be clamped to the plane's
-    edge, per dimension, as a JAX gather clamps it."""
+    a row or column index that strays is clamped to the plane's edge, per
+    dimension, as the motion kernels clamp it. x264_tpu's jnp indexing
+    clamps an index past the far edge alike but wraps a negative one, so
+    the two differ only on windows that no search reaches."""
     P, Hp, Wp = planes.shape
     mbh = (Hp - 2 * pad) // bs
     mbw = (Wp - 2 * pad) // bs
