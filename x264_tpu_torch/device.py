@@ -24,8 +24,9 @@ def resolve_device(device) -> torch.device:
 @functools.cache
 def _const_cached(key: bytes, shape: tuple, dtype: str,
                   device: torch.device) -> torch.Tensor:
+    from .ops._cuda import to_device
     arr = np.frombuffer(key, dtype=dtype).reshape(shape)
-    return torch.from_numpy(arr.copy()).to(device)
+    return to_device(arr.copy(), device, "const_table")
 
 
 def const(arr, device, dtype=torch.int32) -> torch.Tensor:

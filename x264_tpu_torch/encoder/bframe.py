@@ -32,11 +32,13 @@ from ..entropy.cabac_host import encode_slice_cabac
 from ..entropy.cavlc_dev import (LUMA4x4_RASTER, _carried_qp,
                                  encode_bframe_entropy_dev)
 from ..ops import dct, mc, quant
+from ..ops._cuda import to_device, to_host
 from ..ops.commit import (_chroma_blocks, _chroma_merge, _luma_blocks,
                           _luma_merge)
 from ..ops.deblock import compute_strengths_b, deblock_frame
 from ..ops.tables import ZIGZAG4_FRAME
 from ..ops.trellis import frame_ctx_costs, trellis_4x4
+from ..utils import trace
 from .bdirect import derive_direct, direct_pred_luma
 from .encoder import TYPE_B
 from .frame_encode import build_qp_maps
@@ -110,6 +112,7 @@ def _bipred(p0, p1, w0, w1):
     return ((p0 * w0 + p1 * w1 + 32) >> 6).clamp(0, 255)
 
 
+@trace.spanned("analysis:direct")
 def b_direct_core(use0_e, use1_e, mv0_e, mv1_e, col_inter, col_mv,
                   col_uniform, r0_hpel, r1_hpel, tiles, best_exp, w0, w1, *,
                   mbw, mbh, me_range):
@@ -144,13 +147,14 @@ def b_direct_core(use0_e, use1_e, mv0_e, mv1_e, col_inter, col_mv,
         match = ((nd0 == du0) & (nd1 == du1) & (nm0 == dm0).all(-1)
                  & (nm1 == dm1).all(-1))
         new = is_dir & match
-        changed = bool((new != is_dir).any())
+        changed = bool(to_host((new != is_dir).any(), "direct_converged"))
         is_dir = new
         if not changed:
             break
     return is_dir, fields_of(is_dir), pred_dir, cost_dir
 
 
+@trace.spanned("analysis:luma_xfrm")
 def b_luma_core(tiles, pred_y, qp, trl_tabs, *, decimate):
     """Luma transform and quant (with trl_tabs = frame_ctx_costs(False, qp,
     cat=2) the trellis), dct decimation and the reconstruction, as on the
@@ -177,6 +181,7 @@ def b_luma_core(tiles, pred_y, qp, trl_tabs, *, decimate):
     return lv, (pred_y + _luma_merge(dct.idct4x4(dq))).clamp(0, 255)
 
 
+@trace.spanned("analysis:chroma")
 def b_chroma_core(u, v, r0_cuv, r1_cuv, mvs, mode, fields, is_dir_flat, qpc,
                   w0, w1, *, mbw, mbh, use_direct):
     """Chroma MC per list, combined by mode, then transform, quant and
@@ -218,6 +223,7 @@ def b_chroma_core(u, v, r0_cuv, r1_cuv, mvs, mode, fields, is_dir_flat, qpc,
     return out_c
 
 
+@trace.spanned("entropy:decisions")
 def b_decisions_core(mode, skip, mvd0, mvd1, cbp_luma, cbp_chroma, qp,
                      slice_qp, lv, cdc_blk, cac_blk):
     """CABAC path: the decoder-carried QP (the CAVLC writer's rule) and the
@@ -239,6 +245,7 @@ def b_decisions_core(mode, skip, mvd0, mvd1, cbp_luma, cbp_chroma, qp,
     }, eff_qp
 
 
+@trace.spanned("analysis:deblock")
 def b_deblock_core(recon_y, recon_u, recon_v, nnz_l, fields, eff_qp, *, mbw,
                    mbh, a_off, b_off, cqpo):
     """In-loop deblock of a B frame: strengths from the final per-list
@@ -369,6 +376,7 @@ def encode_bframe_device(y, u, v, r0_y, r0_hpel, r0_cuv, r1_y, r1_hpel,
     return words, total_bits, tuple(recon), stats
 
 
+@trace.spanned("entropy:cabac_finalize")
 def cabac_finalize_bframe(enc, decisions, qp_mb, slice_qp, sh):
     """Host tail of a CABAC B frame: move the decision and level tensors
     to the host (one copy, inter.decisions_to_host) and run the C++
@@ -404,12 +412,12 @@ def colocated_fields(ref1, mbw, mbh, device):
     if col_inter is None or col_mv is None:
         return (torch.zeros((mbh, mbw), dtype=torch.bool, device=device),
                 torch.zeros((mbh, mbw, 2), dtype=_i32, device=device), ones)
-    col_inter = torch.as_tensor(col_inter, device=device)
-    col_mv = torch.as_tensor(col_mv, device=device)
+    col_inter = to_device(col_inter, device, "colocated")
+    col_mv = to_device(col_mv, device, "colocated")
     col_mv4 = ref1.get("mvf4")
     if col_mv4 is None:                     # 16x16 only: always uniform
         return col_inter, col_mv, ones
-    c4 = torch.as_tensor(col_mv4, device=device).reshape(mbh, 4, mbw, 4, 2)
+    c4 = to_device(col_mv4, device, "colocated").reshape(mbh, 4, mbw, 4, 2)
     corners = torch.stack([c4[:, cy, :, cx] for cy, cx in
                            ((0, 0), (0, 3), (3, 0), (3, 3))], dim=2)
     cz = (corners[..., 0].abs() <= 1) & (corners[..., 1].abs() <= 1)
@@ -465,17 +473,18 @@ def dispatch_bframe(enc, planes, qp, ref_fwd_tag, ref_bwd_tag):
                 nals = finalize_slice(enc, words, total_bits, cap_words, sh,
                                       nal_mod.NAL_SLICE,
                                       nal_mod.NAL_PRIORITY_DISPOSABLE)
-            rec = ([r.cpu().numpy() for r in recon] if materialize
-                   else list(recon))
-            enc.rc.end(TYPE_B, sum(len(n.payload) * 8 for n in nals),
-                       float(stats["satd"]), qp_try)
+            rec = ([to_host(r, "recon").numpy() for r in recon]
+                   if materialize else list(recon))
+            with trace.span("encoder:ratecontrol"):
+                enc.rc.end(TYPE_B, sum(len(n.payload) * 8 for n in nals),
+                           float(to_host(stats["satd"], "satd")), qp_try)
             # MB-mode histogram of B frames
             mbs = enc.stats.setdefault("mb", {}).setdefault(
                 "B", {"total": 0, "l0": 0, "l1": 0, "bi": 0, "direct": 0,
                       "skip": 0})
             mbs["total"] += mbw * mbh
             for key in ("l0", "l1", "bi", "direct", "skip"):
-                mbs[key] += int(stats[key])
+                mbs[key] += int(to_host(stats[key], "mb_stats"))
             return nals, rec
 
         return finalize, None            # non-reference: no DPB entry

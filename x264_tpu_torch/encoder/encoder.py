@@ -31,6 +31,8 @@ from ..entropy.nal import annexb_bytes
 from ..entropy.slice_hdr import (SLICE_TYPE_B, SLICE_TYPE_I, SLICE_TYPE_P,
                                  SliceHeader)
 from ..ops import mc as mc_ops
+from ..ops._cuda import to_device, to_host
+from ..utils import trace
 
 # frame_encode, intra, lookahead and ratecontrol import the frame types
 # below from this module, so this module imports them inside the functions
@@ -264,7 +266,13 @@ class Encoder:
     def encode(self, pic: Optional[Picture]) -> tuple[list, Optional[PicOut]]:
         """Encode one picture (numpy planes); returns (nals, pic_out).
         Frames pass the lookahead window, then a pipe one frame deep
-        (threads != 1); drain with encode(None)."""
+        (threads != 1); drain with encode(None). Traced as the span
+        "encoder:encode" of the picture's input index (utils/trace.py)."""
+        with trace.span("encoder:encode",
+                        frame=None if pic is None else self.frames_in):
+            return self._encode(pic)
+
+    def _encode(self, pic: Optional[Picture]):
         if self._closed:
             raise EncoderError("encoder closed")
         flush = pic is None
@@ -298,10 +306,11 @@ class Encoder:
         pipe_depth + 1 in flight)."""
         while self._ready and len(self._pipe) <= self._pipe_depth:
             entry, ftype, ref_fwd, ref_bwd = self._ready.pop(0)
-            self._enqueue_frame(entry["planes"], ftype, entry["pic"],
-                                entry["idx"], ref_fwd=ref_fwd,
-                                ref_bwd=ref_bwd,
-                                tree_off=entry.get("tree_off"))
+            with trace.span("encoder:enqueue", frame=entry["idx"]):
+                self._enqueue_frame(entry["planes"], ftype, entry["pic"],
+                                    entry["idx"], ref_fwd=ref_fwd,
+                                    ref_bwd=ref_bwd,
+                                    tree_off=entry.get("tree_off"))
 
     def _pir_advance(self, ftype, idx):
         """Advance the periodic intra refresh sweep by one frame (x264_tpu
@@ -393,6 +402,12 @@ class Encoder:
             "pir": pir_geom, "recovery": recovery, "opaque": pic.opaque})
 
     def _finalize_job(self, job) -> tuple[list, PicOut]:
+        """The job's NALs (SEIs added) and PicOut, and the stats; traced as
+        the span "encoder:finalize" of the job's frame."""
+        with trace.span("encoder:finalize", frame=job["tag"]):
+            return self._finalize(job)
+
+    def _finalize(self, job) -> tuple[list, PicOut]:
         from .intra import PayloadOverflow, aud_nal
         pts, ftype, is_idr, qp, planes = (job["pts"], job["ftype"],
                                           job["is_idr"], job["qp"],
@@ -455,8 +470,10 @@ class Encoder:
         self.stats["bytes"] += nbytes
         self.stats["bytes_by_type"][tkey] += nbytes
         if self.p.analyse.psnr and recon is not None:
-            src = [np.asarray(a.cpu()) for a in self._crop(planes)]
-            rec = [np.asarray(b.cpu() if isinstance(b, torch.Tensor) else b)
+            src = [np.asarray(to_host(a, "psnr"))
+                   for a in self._crop(planes)]
+            rec = [np.asarray(to_host(b, "psnr")
+                              if isinstance(b, torch.Tensor) else b)
                    for b in out.recon]
             for i, (a, b) in enumerate(zip(src, rec)):
                 d = a.astype(np.float64) - b.astype(np.float64)
@@ -467,9 +484,11 @@ class Encoder:
             from ..ops.pixel import ssim as ssim_op
             rec_y = out.recon[0]
             if not isinstance(rec_y, torch.Tensor):
-                rec_y = torch.from_numpy(np.ascontiguousarray(rec_y))
-            out.ssim = float(ssim_op(self._crop(planes)[0],
-                                     rec_y.to(self.device)))
+                rec_y = to_device(np.ascontiguousarray(rec_y), self.device,
+                                  "ssim")
+            out.ssim = float(to_host(ssim_op(self._crop(planes)[0],
+                                             rec_y.to(self.device)),
+                                     "ssim"))
             self.stats["ssim_sum"] = self.stats.get("ssim_sum", 0.0) \
                 + out.ssim
             self.stats["ssim_frames"] = self.stats.get("ssim_frames", 0) + 1
@@ -497,6 +516,7 @@ class Encoder:
             vals.append(10 * np.log10(peak * peak / max(mse, 1e-12)))
         return tuple(vals)
 
+    @trace.spanned("encoder:intake")
     def _pad_to_mb(self, planes: list) -> Planes:
         """Pad planes to MB-aligned sizes by edge replication and move them
         to the encoder's device; the padded luma stays on the host too."""
@@ -514,10 +534,11 @@ class Encoder:
                 pl = np.pad(pl, ((0, ph), (0, pw)), mode="edge")
             if i == 0:
                 out.host_luma = pl
-            out.append(torch.from_numpy(np.ascontiguousarray(pl))
-                       .to(self.device))
+            out.append(to_device(np.ascontiguousarray(pl), self.device,
+                                 "intake"))
         return out
 
+    @trace.spanned("encoder:ratecontrol")
     def _decide_qp(self, ftype: int, pic: Picture, idx: int = None) -> int:
         if self.rc.vbv:
             ahead = [e.get("plan_cost", 0.0) for e, *_ in self._ready]

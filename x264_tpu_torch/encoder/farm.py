@@ -26,6 +26,7 @@ from ..device import resolve_device
 from ..entropy import nal as nal_mod
 from ..entropy import sets
 from ..ops import mc
+from ..ops._cuda import to_host
 from ..ops.commit import commit_batch
 from ..ops.tables import chroma_qp
 from ..params import ANALYSE_I4x4, ANALYSE_PSUB16x16
@@ -182,9 +183,10 @@ class FarmEncoder:
         self._dpb.append([self._dpb_entry(recon) for recon in self.recon])
         if len(self._dpb) > max(self.n_refs, 1):
             self._dpb.pop(0)
-        words_h = torch.stack([w for w, _, _ in frames]).cpu()
-        bits_h = torch.stack([torch.as_tensor(b) for _, b, _ in frames]) \
-            .cpu()
+        words_h = to_host(torch.stack([w for w, _, _ in frames]),
+                          "slice_words").numpy()
+        bits_h = to_host(torch.stack([torch.as_tensor(b)
+                                      for _, b, _ in frames]), "slice_bits")
         outs = []
         for s in range(self.S):
             sh = self._slice_header(ftype, n_ref_l0=n_ref)

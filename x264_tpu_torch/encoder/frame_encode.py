@@ -10,10 +10,13 @@ import torch
 from ..device import const
 from ..entropy import nal as nal_mod
 from ..entropy.slice_hdr import slice_header_write
+from ..ops._cuda import to_device, to_host
 from ..ops.tables import CHROMA_QP_TABLE, chroma_qp
+from ..utils import trace
 from .encoder import TYPE_B, TYPE_I, TYPE_IDR, TYPE_P
 
 
+@trace.spanned("analysis:dispatch")
 def dispatch_frame(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
                    pir=None, ref_bwd=None):
     """Returns (finalize_fn, retry_fn(qp) -> (finalize, recon), recon_dev,
@@ -56,8 +59,8 @@ def build_qp_maps(enc, y, u, v, qp_try, tree_off=None):
                if enc.p.rc.aq_mode else
                torch.zeros((mbh, mbw), dtype=torch.float32, device=dev))
         if tree_off is not None:
-            adj = adj + torch.as_tensor(np.asarray(tree_off, np.float32),
-                                        device=dev)
+            adj = adj + to_device(np.asarray(tree_off, np.float32), dev,
+                                  "tree_offsets")
         qp_mb = torch.round(qp_try + adj).to(torch.int32).clamp(
             enc.p.rc.qp_min, enc.p.rc.qp_max).clamp(0, 51)
         qpc_mb = const(CHROMA_QP_TABLE, dev)[
@@ -66,7 +69,7 @@ def build_qp_maps(enc, y, u, v, qp_try, tree_off=None):
     qp_mb = torch.full((mbh, mbw), qp_try, dtype=torch.int32, device=dev)
     qpc = np.asarray(chroma_qp(np.full((mbh, mbw), qp_try),
                                enc.p.analyse.chroma_qp_offset), np.int32)
-    return qp_mb, torch.from_numpy(qpc).to(dev)
+    return qp_mb, to_device(qpc, dev, "qp_maps")
 
 
 def encode_frame_pcm(enc, planes, ftype, qp):
@@ -75,7 +78,7 @@ def encode_frame_pcm(enc, planes, ftype, qp):
     copied off the device. Returns (nals, recon as numpy == the source)."""
     sh = enc._slice_header(ftype, qp)
     bw = slice_header_write(sh, nal_ref_idc=nal_mod.NAL_PRIORITY_HIGHEST)
-    y, u, v = [p.cpu().numpy() for p in planes]
+    y, u, v = [to_host(p, "pcm").numpy() for p in planes]
     for mby in range(enc.mb_h):
         for mbx in range(enc.mb_w):
             bw.write_ue(25)           # mb_type I_PCM

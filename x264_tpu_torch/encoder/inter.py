@@ -47,6 +47,7 @@ from ..entropy.cavlc_dev import (LUMA4x4_RASTER, _nc_grid_dev,
                                  encode_pframe_entropy_dev,
                                  residual_blocks_dev)
 from ..ops import dct, mc, motion, predict, quant
+from ..ops._cuda import to_device, to_host
 from ..ops.commit import (_chroma_blocks, _chroma_merge, _encode_luma_i16,
                           _luma_blocks, _luma_merge, commit)
 from ..ops.deblock import _rep4, compute_strengths, deblock_frame
@@ -54,6 +55,7 @@ from ..ops.tables import ZIGZAG4_FRAME
 from ..ops.trellis import frame_ctx_costs, trellis_4x4
 from ..ops.warp import mb_windows_ref
 from ..params import ANALYSE_I4x4, ANALYSE_PSUB16x16
+from ..utils import trace
 from .frame_encode import build_qp_maps
 from .intra import (_host, _mb_tiles, cap_bytes_per_mb, decide_modes_full,
                     decide_modes_i4, finalize_slice, finalize_slice_cabac,
@@ -147,6 +149,7 @@ def _first_min_along(cost, dim=0):
     return best, first
 
 
+@trace.spanned("analysis:esa")
 def motion_search(padded_ref, hpel, y_src, lam, me_range: int,
                   shapes: bool = False, pir_cap=None):
     """Exhaustive full-pel search (x264_tpu inter.motion_search, the ESA),
@@ -603,6 +606,7 @@ def _subpel_windows(hpel, mv_c, me_range: int):
                                           SUBPEL_WIN))
 
 
+@trace.spanned("analysis:subpel")
 def subpel_refine_mc(hpel, y_src, mv_c, lam, me_range: int, radius: int = 3,
                      mvp_q=None):
     """subpel_refine_mc_ref's refinement of one lane, with its arguments
@@ -717,6 +721,7 @@ def _first_min(costs):
     return idx.to(_i32), best
 
 
+@trace.spanned("analysis:fullpel")
 def p_fullpel_core(y, ref_y_pad, lam, pir_cap=None, *, me_range,
                    me_seeded=True, shapes=True):
     """Full-pel ME against one reference (the seeded search, or the
@@ -735,6 +740,7 @@ def p_fullpel_core(y, ref_y_pad, lam, pir_cap=None, *, me_range,
     return mvs, mvp_q_est.reshape(-1, 2)
 
 
+@trace.spanned("analysis:subpel")
 def p_subpel_core(y, ref_hpel, mvs, mvp_q_est, lam, w, o, *, me_range,
                   weighted=True, return_cands=False, p8x8=True,
                   partitions=True):
@@ -791,6 +797,7 @@ def p_subpel_core(y, ref_hpel, mvs, mvp_q_est, lam, w, o, *, me_range,
     return out
 
 
+@trace.spanned("analysis:subpel")
 def p_me_select(r0, r1, ref1_valid):
     """Per-MB choice between the two L0 references: ref 1 only when its
     cost is strictly lower; ref1_valid False (a bool or a 0-d tensor) pins
@@ -798,7 +805,7 @@ def p_me_select(r0, r1, ref1_valid):
     cands)."""
     sel1 = r1["cost"] < r0["cost"]
     if ref1_valid is not None:
-        sel1 = sel1 & torch.as_tensor(ref1_valid, device=sel1.device)
+        sel1 = sel1 & to_device(ref1_valid, sel1.device, "ref1_valid")
 
     def pick_sel(k, lead=0):
         a = r0[k]
@@ -837,6 +844,7 @@ def _luma_bits(lv_z, mbh, mbw, lo=0):
     return lens.reshape(n, -1).sum(1, dtype=_i32), nc
 
 
+@trace.spanned("analysis:rd")
 def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
               i16_mode, *, mbw, mbh, two_refs, intra_rd=True):
     """RD re-rank of the partition shape and, with intra_rd, of intra vs
@@ -868,7 +876,7 @@ def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
                            + _mv_cost_bits(mvd[..., 1]))).sum(1, dtype=_i32)
         bits = rbits + mvbits + int(_P_MODE_HDR_BITS[m])
         if two_refs:
-            live = torch.as_tensor(two_refs_live, device=dev)
+            live = to_device(two_refs_live, dev, "ref1_valid")
             bits = bits + torch.where(live, int(_P_MODE_NPARTS[m]), 0)
         cost = ssd + lam2 * bits
         better = cost < bc
@@ -902,6 +910,7 @@ def p_rd_core(y, cand_pred, cand_mv, mvp_q_est, qp_mb, two_refs_live,
     return part_mode, pred_y, mv_parts, is_intra_rd
 
 
+@trace.spanned("analysis:intra")
 def p_intra_core(y, u, v, qp_mb, *, i4):
     """The intra candidate of every P MB: I16x16 / chroma mode costs (and
     I_4x4 with i4) from source neighbours at the per-MB lambda. Returns
@@ -941,6 +950,7 @@ def _merge_plane(mb_tensor, s, hh, ww):
         .reshape(hh, ww)
 
 
+@trace.spanned("analysis:xfrm")
 def p_xfrm_core(y, u, v, ref_cuv_pad, ref1_cuv_pad, inter_cost, pred_y, mvq,
                 part_mode, mv_parts, refidx, i16_mode, chroma_mode, i4_modes,
                 use_i4, best_intra, qp_mb, qpc_mb, is_intra_override=None,
@@ -1118,6 +1128,7 @@ def mixed_commit_inputs(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, i4):
     return args, kw
 
 
+@trace.spanned("analysis:merge_cbp_skip")
 def p_merge_core(y, u, v, qp_mb, qpc_mb, xm, *, mbw, mbh, two_refs, i4,
                  intra_in_p=True):
     """The mixed wavefront commit (intra MBs against their true decoded
@@ -1236,6 +1247,7 @@ def p_effqp_core(cm, slice_qp, *, mbw, mbh):
     return torch.where(has_resid, cm["qp"], prev_qp)
 
 
+@trace.spanned("entropy:decisions")
 def p_decisions_core(cm, slice_qp, *, mbw, mbh):
     """CABAC path: the decoder-carried QP and the narrow decision dict.
     Returns (decisions, eff_qp)."""
@@ -1274,6 +1286,7 @@ def p_decisions_dict(cm, eff_qp, *, mbw, mbh):
     }
 
 
+@trace.spanned("analysis:deblock")
 def p_deblock_core(recon_y, recon_u, recon_v, is_intra, nnz_l, mv, eff_qp,
                    ref_grid=None, *, mbw, mbh, two_refs, a_off, b_off, cqpo):
     """In-loop deblock of a P frame: strengths, then the wavefront."""
@@ -1434,14 +1447,17 @@ def p_finish(cm, slice_qp, *, mbw, mbh, cap_words, deblock, a_off, b_off,
 
 
 # ------------------------------------------------------------ frame glue
+@trace.spanned("entropy:decisions_to_host")
 def decisions_to_host(decisions, qp_mb):
     """The decision and level tensors of `p_decisions_dict` (or of
     bframe.b_decisions_core) and the QP map as numpy arrays: the one
     device-to-host copy of a CABAC P or B frame."""
-    d = {k: val.cpu().numpy() for k, val in decisions.items()}
-    return d, _host(qp_mb, np.int32).reshape(-1)
+    d = {k: to_host(val, "decisions").numpy()
+         for k, val in decisions.items()}
+    return d, _host(qp_mb, np.int32, "decisions").reshape(-1)
 
 
+@trace.spanned("entropy:cabac_finalize")
 def cabac_finalize_pframe(enc, decisions, qp_mb, slice_qp, sh):
     """Host tail of a CABAC P frame: move the decision and level tensors
     to the host and run the C++ writer (csrc/cabac.cpp). The writer gets
@@ -1503,10 +1519,11 @@ def pir_maps(pir, mbw, mbh, device):
         # MB whose every offset is capped falls back to the forced intra
         guard = (ref_end * 16 - cols * 16 - 3) > 0
         cap = np.where((cols < start_col) & guard, lim, cap)
-    band_t = torch.from_numpy(np.ascontiguousarray(
-        np.broadcast_to(band, (mbh, mbw)))).to(device)
-    cap_t = torch.from_numpy(np.ascontiguousarray(
-        np.broadcast_to(cap, (mbh, mbw)).astype(np.int32))).to(device)
+    band_t = to_device(np.ascontiguousarray(
+        np.broadcast_to(band, (mbh, mbw))), device, "pir_maps")
+    cap_t = to_device(np.ascontiguousarray(
+        np.broadcast_to(cap, (mbh, mbw)).astype(np.int32)), device,
+        "pir_maps")
     return band_t, cap_t
 
 
@@ -1576,7 +1593,7 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
         if nr and not hasattr(enc, "_nr_state"):
             enc._nr_state = (np.zeros((4, 4), np.int64), 0,
                              np.zeros((4, 4), np.int32))
-        nr_offset = (torch.from_numpy(enc._nr_state[2]).to(y.device)
+        nr_offset = (to_device(enc._nr_state[2], y.device, "nr_offset")
                      if nr else None)
         pir_band = pir_cap = None
         if pir is not None:
@@ -1608,15 +1625,17 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
                 nals = finalize_slice(enc, words, total_bits, cap_words, sh,
                                       nal_mod.NAL_SLICE,
                                       nal_mod.NAL_PRIORITY_HIGH)
-            rec = ([r.cpu().numpy() for r in recon] if materialize
-                   else list(recon))
-            enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),
-                       float(stats["satd"]), qp_try)
+            rec = ([to_host(r, "recon").numpy() for r in recon]
+                   if materialize else list(recon))
+            with trace.span("encoder:ratecontrol"):
+                enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),
+                           float(to_host(stats["satd"], "satd")), qp_try)
             if nr and stats["nr_sums"] is not None:
                 # offset learning (x264_noise_reduction_update)
                 s, c, _ = enc._nr_state
                 off, s2, c2 = quant.nr_update(
-                    nr, stats["nr_sums"].cpu().numpy(), 16 * mbw * mbh, s, c)
+                    nr, to_host(stats["nr_sums"], "nr_sums").numpy(),
+                    16 * mbw * mbh, s, c)
                 enc._nr_state = (s2, c2, off)
             # MB-mode histogram (encoder_close's stats block)
             mbs = enc.stats.setdefault("mb", {}).setdefault(
@@ -1626,7 +1645,8 @@ def dispatch_pframe(enc, planes, ftype, qp, ref_tag=None, tree_off=None,
             for key, skey in (("skip", "skip"), ("intra", "intra"),
                               ("16x8", "p16x8"), ("8x16", "p8x16"),
                               ("8x8", "p8x8")):
-                mbs[key] = mbs.get(key, 0) + int(stats[skey])
+                mbs[key] = mbs.get(key, 0) + int(to_host(stats[skey],
+                                                         "mb_stats"))
             return nals, rec
 
         return finalize, list(recon)

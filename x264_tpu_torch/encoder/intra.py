@@ -31,10 +31,12 @@ from ..entropy.cavlc_dev import (LUMA4x4_RASTER, encode_i16x16_frame_dev,
                                  words_to_bytes)
 from ..entropy.slice_hdr import slice_header_write
 from ..ops import pixel, predict
+from ..ops._cuda import to_host
 from ..ops.commit import _i4_block_avail, commit
 from ..ops.deblock import deblock_frame, intra_strengths
 from ..ops.tables import ZIGZAG4_FRAME
 from ..params import ANALYSE_I4x4
+from ..utils import trace
 from .encoder import TYPE_IDR
 from .frame_encode import build_qp_maps
 
@@ -334,16 +336,22 @@ class PayloadOverflow(Exception):
     (reference encoder.c:2893-2902)."""
 
 
+@trace.spanned("entropy:finalize_slice")
 def finalize_slice(enc, words, total_bits, cap_words, sh, nal_type,
                    ref_idc):
     """Host tail of a frame: fetch the payload, append it to the slice
-    header, wrap it in a NAL."""
+    header, wrap it in a NAL. `words` and `total_bits` are the device's
+    (tensors, read here) or already on the host (numpy, an int)."""
+    if isinstance(total_bits, torch.Tensor):
+        total_bits = to_host(total_bits, "slice_bits")
     total_bits = int(total_bits)
     if total_bits > cap_words * 32 - 32:
         raise PayloadOverflow(f"{total_bits} bits > cap")
     n_words = (total_bits + 31) // 32
-    payload, nbits = words_to_bytes(words[:n_words].cpu().numpy(),
-                                    total_bits)
+    words = words[:n_words]
+    if isinstance(words, torch.Tensor):
+        words = to_host(words, "slice_words").numpy()
+    payload, nbits = words_to_bytes(words, total_bits)
     bw = slice_header_write(sh, ref_idc)
     append_bitstring(bw, payload, nbits)
     bw.rbsp_trailing()
@@ -358,11 +366,13 @@ def finalize_slice_cabac(enc, payload: bytes, sh, nal_type, ref_idc):
     return [nal_mod.nal_encode(nal_type, ref_idc, bw.getvalue())]
 
 
-def _host(t, dtype):
-    """A device tensor as a numpy array of `dtype` (one copy to the host)."""
-    return t.cpu().numpy().astype(dtype, copy=False)
+def _host(t, dtype, site):
+    """A device tensor as a numpy array of `dtype` (one copy to the host,
+    the wait traced as "sync:<site>")."""
+    return to_host(t, site).numpy().astype(dtype, copy=False)
 
 
+@trace.spanned("entropy:cabac_finalize")
 def cabac_finalize_iframe(enc, mode_m, mode_c, dc_z, ac_z, cdc, cac,
                           qp_mb, slice_qp, sh, nal_type, ref_idc, is_i4,
                           i4_modes):
@@ -371,12 +381,13 @@ def cabac_finalize_iframe(enc, mode_m, mode_c, dc_z, ac_z, cdc, cac,
     not the decoder-carried one: it derives mb_qp_delta itself."""
     mbw, mbh = enc.mb_w, enc.mb_h
     n = mbw * mbh
+    site = "cabac_levels"
     # blocks raster in tensors -> z-scan coding order for the writer
-    ac = _host(ac_z, np.int16)[:, LUMA4x4_RASTER]
-    cacn = _host(cac, np.int16)
-    cdcn = _host(cdc, np.int16)
+    ac = _host(ac_z, np.int16, site)[:, LUMA4x4_RASTER]
+    cacn = _host(cac, np.int16, site)
+    cdcn = _host(cdc, np.int16, site)
     cbp_luma = np.where((ac[:, :, 1:] != 0).any(axis=(1, 2)), 15, 0)
-    is_i4 = _host(is_i4, np.uint8)
+    is_i4 = _host(is_i4, np.uint8, site)
     # I4 MBs: per-8x8-quad cbp over the full 16-coeff blocks
     # (z-scan groups 4 consecutive blocks per quad)
     quad_nz = (ac != 0).any(axis=2).reshape(n, 4, 4).any(axis=2)
@@ -388,12 +399,12 @@ def cabac_finalize_iframe(enc, mode_m, mode_c, dc_z, ac_z, cdc, cac,
     payload = encode_slice_cabac(
         True, mbw, mbh, slice_qp,
         np.zeros(n, np.uint8), np.ones(n, np.uint8),
-        _host(mode_m, np.int32), _host(mode_c, np.int32),
-        cbp_luma, cbp_chroma, _host(qp_mb, np.int32).reshape(-1),
+        _host(mode_m, np.int32, site), _host(mode_c, np.int32, site),
+        cbp_luma, cbp_chroma, _host(qp_mb, np.int32, site).reshape(-1),
         np.zeros((n, 2), np.int16),
-        _host(dc_z, np.int16), ac, cdcn,
+        _host(dc_z, np.int16, site), ac, cdcn,
         cacn.reshape(n, 8, 16),
-        is_i4=is_i4, i4_modes=_host(i4_modes, np.uint8))
+        is_i4=is_i4, i4_modes=_host(i4_modes, np.uint8, site))
     return finalize_slice_cabac(enc, payload, sh, nal_type, ref_idc)
 
 
@@ -439,10 +450,11 @@ def dispatch_iframe(enc, planes, ftype, qp, tree_off=None):
             else:
                 nals = finalize_slice(enc, words, total_bits, cap_words, sh,
                                       nal_type, nal_mod.NAL_PRIORITY_HIGHEST)
-            rec = ([r.cpu().numpy() for r in recon] if materialize
-                   else list(recon))
-            enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),
-                       float(satd_cost), qp_try)
+            rec = ([to_host(r, "recon").numpy() for r in recon]
+                   if materialize else list(recon))
+            with trace.span("encoder:ratecontrol"):
+                enc.rc.end(ftype, sum(len(n.payload) * 8 for n in nals),
+                           float(to_host(satd_cost, "satd")), qp_try)
             return nals, rec
 
         return finalize, list(recon)

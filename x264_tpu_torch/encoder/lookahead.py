@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ..device import const
+from ..ops._cuda import to_host
 from ..ops.mc import _clamped
+from ..utils import trace
 from .encoder import (TYPE_AUTO, TYPE_B, TYPE_BREF, TYPE_I, TYPE_IDR,
                       TYPE_KEYFRAME, TYPE_P)
 
@@ -38,6 +40,7 @@ def lowres_plane(y):
                                       hfilt(v1, 1)])
 
 
+@trace.spanned("lookahead:search")
 def _search_pair(low_cur, low_ref, ref_phases=None, *, srange: int = 8):
     """Dense +-srange full-pel search of cur against ref on lowres, offsets
     in raster order, a later offset winning only on a strictly lower SAD;
@@ -91,6 +94,7 @@ def intra_blocks(low_cur):
         dim=(2, 3), dtype=torch.int32) + 5 * 8
 
 
+@trace.spanned("lookahead:bidir")
 def _bidir_cost(low_b, low_p0, low_p1, mv0, mv1):
     """Cost per 8x8 block of the average of the two references, each at
     the MV its own search found (mv0 / mv1 [bh, bw, 2], within +-8)."""
@@ -137,6 +141,7 @@ class Lookahead:
             self.depth = max(self.depth, min(max(p.rc.lookahead, 8), 40))
 
     # ------------------------------------------------------------- intake
+    @trace.spanned("lookahead:push")
     def push(self, planes, pic, idx) -> None:
         """planes: [y, u, v] tensors on the encoder's device."""
         low, phases = lowres_plane(planes[0])
@@ -171,7 +176,8 @@ class Lookahead:
         eb = self._entry(b)
         ic = eb["icost_blk"]
         if p0 == b:
-            out = {"cost": int(ic.sum()), "cost_blk": ic, "mv": None,
+            out = {"cost": int(to_host(ic.sum(), "lookahead_cost")),
+                   "cost_blk": ic, "mv": None,
                    "intra_blk": ic}
         else:
             e0 = self._entry(p0)
@@ -186,7 +192,8 @@ class Lookahead:
                                  mv0, mv1)
                 best = torch.minimum(best, torch.minimum(sad1, bi))
             blk = torch.minimum(best, ic)
-            out = {"cost": int(blk.sum()), "cost_blk": blk, "mv": mv0,
+            out = {"cost": int(to_host(blk.sum(), "lookahead_cost")),
+                   "cost_blk": blk, "mv": mv0,
                    "intra_blk": ic}
         self._costs[key] = out
         return out
@@ -201,7 +208,8 @@ class Lookahead:
         prev_idx = self.prev["idx"] if self.prev is not None else None
         for e in self.window:
             if prev_idx is None:
-                out.append(float(e["icost_blk"].sum()))
+                out.append(float(to_host(e["icost_blk"].sum(),
+                                         "lookahead_cost")))
             else:
                 out.append(float(self.frame_cost(prev_idx, e["idx"],
                                                  e["idx"])))
@@ -269,7 +277,8 @@ class Lookahead:
         for e in self.window[:count]:
             key = (prev_idx, e["idx"], e["idx"])
             if prev_idx is None or e["idx"] == idr_idx:
-                e["plan_cost"] = float(e["icost_blk"].sum())
+                e["plan_cost"] = float(to_host(e["icost_blk"].sum(),
+                                               "lookahead_cost"))
             elif key in self._costs:
                 e["plan_cost"] = float(self._costs[key]["cost"])
             else:
@@ -284,6 +293,7 @@ class Lookahead:
         self._costs = {k: v for k, v in self._costs.items()
                        if all(i in live for i in k)}
 
+    @trace.spanned("lookahead:decide")
     def decide(self, last_keyframe: int, flush: bool):
         """Decide the next minigop once enough frames are buffered.
         Returns a list of (entry, ftype, ref_fwd_idx, ref_bwd_idx) in
@@ -387,8 +397,9 @@ class Lookahead:
             f = self._fields(w[k - 1]["idx"], w[k]["idx"], w[k]["idx"])
             prop = _mbtree_propagate(f["intra_blk"], f["cost_blk"], prop,
                                      f["mv"])
-        off = _mbtree_finish(anchor["icost_blk"], prop,
-                             self.tree_strength).cpu().numpy()
+        off = to_host(_mbtree_finish(anchor["icost_blk"], prop,
+                                     self.tree_strength),
+                      "mbtree_offsets").numpy()
         return off - off.mean()
 
 
@@ -407,13 +418,17 @@ def _ordered_scatter_add(size: int, idx, val):
     first[1:] = sidx[1:] != sidx[:-1]
     rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
     out = torch.zeros(size, dtype=torch.float32, device=dev)
-    for r in range(int(rank.max()) + 1):
+    for r in range(int(to_host(rank.max(), "mbtree_scatter")) + 1):
         m = rank == r
-        t = sidx[m]
-        out[t] = out[t] + sval[m]
+        with trace.waits("mbtree_scatter"):       # a boolean-mask read
+            t = sidx[m]
+        with trace.waits("mbtree_scatter"):
+            v = sval[m]
+        out[t] = out[t] + v
     return out
 
 
+@trace.spanned("lookahead:mbtree_propagate")
 def _mbtree_propagate(intra_blk, cost_blk, prop_in, mv):
     """One backward propagation step (macroblock_tree_propagate, the
     single-reference P form): the share of each block's information that
@@ -447,6 +462,7 @@ def _mbtree_propagate(intra_blk, cost_blk, prop_in, mv):
                                 torch.cat(val)).reshape(bh, bw)
 
 
+@trace.spanned("lookahead:mbtree_finish")
 def _mbtree_finish(intra_blk, prop, strength):
     """Per-block QP offsets (macroblock_tree_finish):
     -strength * log2((intra + propagate) / intra) as a difference of logs.

@@ -18,6 +18,7 @@ import subprocess
 
 import numpy as np
 
+from ..utils import trace
 from . import cabac_tables as T
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,6 +83,7 @@ def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
+@trace.spanned("entropy:cabac_writer")
 def encode_slice_cabac(slice_type, mbw: int, mbh: int,
                        slice_qp: int, skip, is_intra, i16_mode,
                        chroma_mode, cbp_luma, cbp_chroma, qp_mb, mvd,

@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from ..device import const
+from ..ops._cuda import to_device
 from ..ops.tables import ZIGZAG4_FRAME
+from ..utils import trace
 from . import vlc_tables as V
 
 BLOCK_SLOTS = 36
@@ -219,10 +221,14 @@ def pack_mb_stream(codes, lens, mb_cap_words: int, cap_words: int,
     acc = torch.zeros(M * Wm, dtype=_i64, device=dev)
     for w, val in ((w0, v0), (w0 + 1, v1)):
         keep = w < Wm
-        acc.index_add_(0, (rows + w)[keep], val[keep])
+        with trace.waits("cavlc_pack"):         # a boolean-mask read
+            at = (rows + w)[keep]
+        with trace.waits("cavlc_pack"):
+            add = val[keep]
+        acc.index_add_(0, at, add)
     acc = (acc & _M32).reshape(M, Wm)
     mb_over = ((mb_bits > mb_cap_words * 32).any()
-               | torch.as_tensor(force_over, device=dev))
+               | to_device(force_over, dev, "cavlc_pack"))
 
     # phase B
     mb_end = torch.cumsum(mb_bits.to(_i64), 0)
@@ -238,7 +244,11 @@ def pack_mb_stream(codes, lens, mb_cap_words: int, cap_words: int,
     word_idx = (mb_start >> 5)[:, None] + torch.arange(Wm + 1, device=dev)
     keep = (word_idx >= 0) & (word_idx < cap_words)
     words = torch.zeros(cap_words, dtype=_i64, device=dev)
-    words.index_add_(0, word_idx[keep], shifted[keep])
+    with trace.waits("cavlc_pack"):
+        at = word_idx[keep]
+    with trace.waits("cavlc_pack"):
+        add = shifted[keep]
+    words.index_add_(0, at, add)
     words = words & _M32
     total_bits = torch.where(mb_over, cap_words * 32, total_bits)
     return words, total_bits
@@ -266,6 +276,7 @@ def _quad_of_raster():
     return (blk_r // 4 // 2) * 2 + (blk_r % 4) // 2      # raster -> 8x8 id
 
 
+@trace.spanned("entropy:cavlc")
 def encode_i16x16_frame_dev(i16_mode, chroma_mode, qp_flat, slice_qp,
                             dc_blk, ac_blk, cdc_blk, cac_blk, *, mbw: int,
                             mbh: int, cap_words: int, is_i4=None,
@@ -426,8 +437,8 @@ def _carried_qp(has, qp_flat, slice_qp):
     prev = torch.cat([torch.full((1,), -1, dtype=torch.int32,
                                  device=qp_flat.device), last[:-1]])
     prev_qp = torch.where(prev >= 0, qp_flat[prev.clamp(min=0).long()],
-                          torch.as_tensor(slice_qp, dtype=torch.int32,
-                                          device=qp_flat.device))
+                          to_device(slice_qp, qp_flat.device, "slice_qp",
+                                    dtype=torch.int32))
     return prev_qp, torch.where(has, qp_flat, prev_qp)
 
 
@@ -534,7 +545,7 @@ def _pframe_mb_codes(skip, mvd, cbp_luma, cbp_chroma, qp_flat, slice_qp,
     if two_refs:
         live = (torch.ones((), dtype=torch.bool, device=dev)
                 if two_refs_live is None
-                else torch.as_tensor(two_refs_live, device=dev))
+                else to_device(two_refs_live, dev, "ref1_valid"))
         ref_bit = (1 - refidx.to(_i64))
         gates = (~is_intra & live, part2 & live, p88 & live, p88 & live)
         for pi, gate in enumerate(gates):
@@ -595,6 +606,7 @@ def _pframe_mb_codes(skip, mvd, cbp_luma, cbp_chroma, qp_flat, slice_qp,
     return codes, lens, eff_qp, lvl_over, trailing
 
 
+@trace.spanned("entropy:cavlc")
 def encode_pframe_entropy_dev(skip, mvd, cbp_luma, cbp_chroma, qp_flat,
                               slice_qp, luma_lv, cdc_blk, cac_blk, *,
                               mbw: int, mbh: int, cap_words: int, **kw):
@@ -624,6 +636,7 @@ def _trailing_run_row(codes, lens, trailing):
     return torch.cat([codes, trow_c]), torch.cat([lens, trow_l])
 
 
+@trace.spanned("entropy:cavlc")
 def encode_bframe_entropy_dev(mode, mvd0, mvd1, cbp_luma, cbp_chroma, qp_flat,
                               slice_qp, luma_lv, cdc_blk, cac_blk, *,
                               mbw: int, mbh: int, cap_words: int, skip=None):

@@ -8,7 +8,9 @@ shared memory, spills) beside it as `build.log`. `library()` loads it once
 per process; each op module declares the argument types of its own entry
 points. The helpers below are shared by the kernels' wrappers: the
 co-resident capacity of a persistent kernel, the checks of a wrapper's
-tensors and of a persistent launch's progress words.
+tensors and of a persistent launch's progress words, and the two through
+which the encoder's host reads the card's data and uploads its own
+(`to_host`, `to_device`: each a traced host wait).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import subprocess
 import threading
 
 import torch
+
+from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name)
@@ -129,9 +133,31 @@ def check_progress(prog, done):
     row's progress word, then the error word) finished every row: each
     word reached `done` (mbw finished MBs for the commit kernel, 2 mbw
     half-steps for the deblock kernel). Synchronises with the launch."""
-    p = prog.cpu()
+    p = to_host(prog, "kernel_progress")
     if int(p[-1]) != 0:
         raise RuntimeError("kernel: a wavefront wait ran past its bound; the "
                            "frame is incomplete")
     if int(p[:-1].min()) != done:
         raise RuntimeError("kernel: MB rows left unfinished")
+
+
+def to_host(t, site):
+    """`t.cpu()`: on a CUDA tensor the host waits for the card. Traced as
+    a "sync:<site>" span and one `host_syncs` of the current frame
+    (utils/trace.py), on any device, so that a CPU run counts the waits a
+    run on the card makes."""
+    with trace.waits(site):
+        return t.cpu()
+
+
+def to_device(a, device, site, dtype=None):
+    """`torch.as_tensor(a, dtype, device)`. Host data (numpy, a Python
+    number or list, a CPU tensor) is a blocking copy, which on a CUDA
+    device waits for it: traced as `to_host` is. A tensor already on
+    `device` is neither copied nor traced."""
+    dev = torch.device(device)
+    if (isinstance(a, torch.Tensor) and a.device.type == dev.type
+            and dev.index in (None, a.device.index)):
+        return torch.as_tensor(a, dtype=dtype)
+    with trace.waits(site):
+        return torch.as_tensor(a, dtype=dtype, device=dev)

@@ -39,6 +39,7 @@ from . import _cuda, dct, predict, quant, tables
 # the build and the progress check, for callers of this module
 from ._cuda import build_library, check_progress  # noqa: F401
 from ._cuda import check_tensor
+from ..utils import trace
 
 # z-scan coding order of the 16 luma 4x4 blocks (spec figure 6-10)
 I4_ZX = np.array([0, 1, 0, 1, 2, 3, 2, 3, 0, 1, 0, 1, 2, 3, 2, 3])
@@ -537,13 +538,10 @@ def commit_cuda_diag(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw,
         if rc != 0:
             raise RuntimeError(f"commit kernel launch failed on diagonal {d}:"
                                f" CUDA error {rc}")
-        commit_cuda_diag.launches += 1
     return _first_item(out, recon)
 
 
-commit_cuda_diag.launches = 0
-
-
+@trace.spanned("analysis:commit")
 def commit(y, u, v, i16_mode, chroma_mode, qp_mb, qpc_mb, mbw, mbh,
            is_intra=None, inter_planes=None, i4_mask=None, i4_modes=None):
     """Wavefront commit with the outputs of x264_tpu's commit_dispatch, of

@@ -42,6 +42,7 @@ from ..device import const
 from . import _cuda
 from . import tables as T
 from ._cuda import check_progress, check_tensor
+from ..utils import trace
 from .commit import _diag_mbs, n_diags
 
 # spec tables 8-16 / 8-17 (qp 0..51), as in x264_tpu/ops/deblock.py (a JAX
@@ -473,14 +474,12 @@ def deblock_launch_rows(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, rows,
                         a_off=0, b_off=0, chroma_qp_offset=0):
     """The deblock kernel with `rows` (1, 2, 4 or 8) MB rows per block, one
     block per band: off the main path, so that a run on the card can time
-    the band heights side by side. As deblock_launch otherwise;
-    `deblock_launch_rows.launches` counts its launches."""
+    the band heights side by side. As deblock_launch otherwise."""
     args, out, prog, _qp = _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh,
                                     a_off, b_off, chroma_qp_offset)
     stream = torch.cuda.current_stream(y.device).cuda_stream
     _launched(_library().x264t_deblock_frame_rows(
         ctypes.byref(args), prog.data_ptr(), -(-mbh // rows), rows, stream))
-    deblock_launch_rows.launches += 1
     return out, prog
 
 
@@ -489,20 +488,14 @@ def deblock_launch_rowwarp(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
     """The first port's deblock kernel (deblock_frame_kernel_rowwarp: one
     warp per MB row, a progress count per whole MB through global memory),
     one block per row: off the main path, kept so that a run on the card
-    can time the two designs on the same inputs.
-    `deblock_launch_rowwarp.launches` counts its launches."""
+    can time the two designs on the same inputs."""
     args, out, prog, _qp = _prepare(y, u, v, bs_v, bs_h, qp_mb, mbw, mbh,
                                     a_off, b_off, chroma_qp_offset)
     grid = min(mbh, _cuda.capacity("deblock_rowwarp", y.device))
     stream = torch.cuda.current_stream(y.device).cuda_stream
     _launched(_library().x264t_deblock_frame_rowwarp(
         ctypes.byref(args), prog.data_ptr(), grid, stream))
-    deblock_launch_rowwarp.launches += 1
     return out, prog
-
-
-deblock_launch_rows.launches = 0
-deblock_launch_rowwarp.launches = 0
 
 
 def deblock_cuda(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0, b_off=0,
@@ -518,6 +511,7 @@ def deblock_cuda(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0, b_off=0,
     return out
 
 
+@trace.spanned("analysis:deblock")
 def deblock_frame(y, u, v, bs_v, bs_h, qp_mb, *, mbw, mbh, a_off=0,
                   b_off=0, chroma_qp_offset=0):
     """Deblock a frame, with the outputs of x264_tpu's deblock_frame: y

@@ -40,7 +40,9 @@ import torch
 from ..device import const
 from ..entropy import cabac_tables as CT
 from ..entropy.cabac_host import init_states
+from ..utils import trace
 from . import tables
+from ._cuda import to_device
 
 # --------------------------------------------------------------- tables
 _ALPHA = (0.01875 / 0.5) ** (1.0 / 63.0)
@@ -149,6 +151,7 @@ def frame_ctx_costs(slice_type_i: bool, slice_qp: int, cat: int,
     return sig, last, lvl
 
 
+@trace.spanned("entropy:trellis")
 def trellis_4x4(lv_z, w_z, qp, sig_cost, last_cost, lvl_states,
                 intra: bool = False, b_ac: int = 0,
                 dc_block: bool = False):
@@ -187,7 +190,7 @@ def trellis_4x4(lv_z, w_z, qp, sig_cost, last_cost, lvl_states,
     jj = ar8.to(i32)[None, None, :]
     slots = torch.arange(4, device=dev)[None, None, :]
     node_is7 = ar8[None, :] == 7
-    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    inf = to_device(_INF, dev, "trellis_init", dtype=f32)
 
     def full(v):
         return torch.full((N,), v, dtype=i32, device=dev)
@@ -197,8 +200,8 @@ def trellis_4x4(lv_z, w_z, qp, sig_cost, last_cost, lvl_states,
     score = torch.full((N, 8), float(_INF), dtype=f32, device=dev)
     score[:, 0] = 0.0
     levels = torch.zeros((N, 8, 16), dtype=i32, device=dev)
-    lst = torch.tensor([frozen[0], frozen[4], frozen[8], frozen[9]],
-                       dtype=i32, device=dev).expand(N, 8, 4)
+    lst = to_device([frozen[0], frozen[4], frozen[8], frozen[9]], dev,
+                    "trellis_init", dtype=i32).expand(N, 8, 4)
 
     for i in range(15, b_ac - 1, -1):
         q = q_abs[:, i]                                       # [N]

@@ -28,6 +28,7 @@ import torch
 from ..device import resolve_device
 from ..encoder import inter, intra
 from ..ops import mc as mc_ops
+from ..ops._cuda import to_host
 from ..ops.commit import commit_batch
 from ..ops.tables import chroma_qp
 
@@ -142,9 +143,9 @@ def assemble_band_nals(params, band_words, band_bits, *, band_mb_rows: int,
     from ..entropy.slice_hdr import (SLICE_TYPE_I, SLICE_TYPE_P, SliceHeader,
                                      slice_header_write)
     if isinstance(band_words, torch.Tensor):
-        band_words = band_words.cpu().numpy()
+        band_words = to_host(band_words, "slice_words").numpy()
     if isinstance(band_bits, torch.Tensor):
-        band_bits = band_bits.cpu().numpy()
+        band_bits = to_host(band_bits, "slice_bits").numpy()
     sps = sets.sps_init(params, params.sps_id)
     pps = sets.pps_init(params, sps, params.sps_id)
     mbw = params.mb_width
