@@ -4,14 +4,16 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --commit-ab OTHER_CHECKOUT   (see ab)
     python3 chip_smoke.py --motion-ab OTHER_CHECKOUT   (see ab)
+    python3 chip_smoke.py --cavlc                      (see cavlc_only)
 
 Phases, in the order 1, 8, 2, 4, 5, 7, 9, 10, 6 (the timed work, with
 nothing else running but the default path's decoder, at the lowest
 priority on one core), then 3 (it times nothing) and the report (any
 failure exits non-zero, stops every process the run started and prints
 no result line):
-  1. build the hand-written CUDA kernels (csrc/commit.cu, csrc/deblock.cu
-     and csrc/motion.cu, one nvcc each, sm_90a, linked into one library)
+  1. build the hand-written CUDA kernels (csrc/commit.cu, csrc/deblock.cu,
+     csrc/motion.cu and csrc/cavlc.cu, one nvcc each, sm_90a, linked into
+     one library)
      and print what ptxas reports; build and load the host CABAC writer
      (csrc/cabac.cpp, g++) beside them, all compilers started together;
      set the integer peak from the card (SMs x 128 lane instructions a
@@ -72,7 +74,12 @@ no result line):
      4x4 block) pairs read from an earlier lane; each kernel timed on its
      real 1080p inputs beside its plain version and its bound, the qpel
      kernel at 9, 5 and 1 lanes, and each motion kernel's ptxas report
-     (motion_phase); no kernel's bound may exceed its time;
+     (motion_phase); then the CAVLC residual coder kernel (csrc/cavlc.cu)
+     against its plain version (residual_blocks_plain) on the cases of
+     tests/cavlc_cases.py and on the five calls of a real 1080p ultrafast
+     P frame's CAVLC writer, each of those timed beside the plain version
+     and its byte bound, and its ptxas report (cavlc_phase); no kernel's
+     bound may exceed its time;
   3. in a pool of worker processes (each with its own CUDA context),
      beside the decoders that the cases ask for: encode a 3-frame 64x48
      all-intra clip and a 5-frame 64x48 IPPP clip
@@ -107,7 +114,8 @@ no result line):
   of exactly the kernels it searches with (none on the all-intra path;
   the seeded search's two and the qpel refine on the P paths, the CLI
   and the farm; the ESA and the qpel refine on the mesh's P step; all
-  four on the default path, whose B frames run the ESA).
+  four on the default path, whose B frames run the ESA); the CAVLC
+  kernel's launches on phases 4, 5, 7, 8 and 9's paths are reported too.
   4. the all-intra path: 3 frames of the bench's 1080p clip (bench.py
      synth_clip; preset medium, keyint 1, CQP 26, CAVLC, deblock, I_4x4)
      through Encoder.encode on CUDA, with the kernels' launch counts reset
@@ -1594,6 +1602,140 @@ def motion_phase(torch, dev, clip, b_calls):
     return out
 
 
+def cavlc_bound(args, out):
+    """Least time the card could take for one launch of the CAVLC kernel
+    with the wrapper's arguments `args` and its outputs `out`: bytes, each
+    input read once and each output written once (B x (4L + 4) in, B x
+    (36 x 12 + 5) out), over the memory rate. Returns (bound_ms, bound_by,
+    bytes)."""
+    import torch
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in ins + list(out))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes", nbytes
+
+
+def cavlc_phase(torch, dev, clip, ptxas):
+    """Phase 2, the CAVLC residual coder kernel (csrc/cavlc.cu): against
+    its plain version (entropy/cavlc_dev.py residual_blocks_plain) on the
+    card, tolerance 0 in all four outputs, on every case of
+    tests/cavlc_cases.py (each nC class, L = 16, 15 and the 2x2 / 2x4
+    chroma DC, zero and full blocks, trailing ones, the suffix length's
+    steps, the escape limit, a 1080p luma batch) and on the five calls of
+    the device CAVLC writer of a real 1080p P frame at preset ultrafast
+    (frame 1 of the clip; luma 16 and DC, luma AC 15, chroma DC, chroma
+    AC). Then each of those calls timed (CUDA events, 2 x 20 launches after
+    3, queued behind a torch.cuda._sleep) beside the plain version (one
+    run) and its byte bound, and the kernel's ptxas report. Returns what
+    the report reads."""
+    from x264_tpu_torch.encoder.encoder import TYPE_IDR, TYPE_P, Encoder
+    from x264_tpu_torch.entropy import cavlc_dev
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from cavlc_cases import cavlc_cases
+    launch = cavlc_launch()
+    worst = 0
+
+    def against_plain(label, args):
+        nonlocal worst
+        want = cavlc_dev.residual_blocks_plain(*args)
+        n0 = launch.launches
+        got = cavlc_dev.residual_blocks_dev(*args)
+        if launch.launches != n0 + 1:
+            fail(f"phase 2 cavlc ({label}): {launch.launches - n0} launches "
+                 f"for one call")
+        for i, (w, g) in enumerate(zip(want, got)):
+            if w.dtype != g.dtype or w.shape != g.shape:
+                fail(f"phase 2 cavlc ({label}) output {i}: {g.dtype} "
+                     f"{tuple(g.shape)}, expected {w.dtype} "
+                     f"{tuple(w.shape)}")
+            err = (w.long() - g.long()).abs().max().item() if w.numel() \
+                else 0
+            worst = max(worst, err)
+            if err != 0:
+                fail(f"phase 2 cavlc_residual_kernel disagrees with its "
+                     f"plain version ({label}) in output {i}: max_abs_err "
+                     f"{err}")
+        return got
+
+    cases = cavlc_cases(big=True)
+    for name, (coeffs, nc, chroma_dc) in cases.items():
+        against_plain(name, (torch.from_numpy(coeffs).to(dev),
+                             torch.from_numpy(nc).to(dev), chroma_dc))
+    torch.cuda.synchronize()
+    log(f"phase 2 cavlc_residual_kernel vs residual_blocks_plain on "
+        f"{len(cases)} cases ({sorted(cases)}): max_abs_err {worst} "
+        f"(tolerance 0)")
+
+    h, w = clip[0][0].shape
+    enc = Encoder(ultrafast_params(w, h), device=dev)
+    enqueue(enc, clip[0], TYPE_IDR, 0)
+    calls = []
+    restore = capture_calls(cavlc_dev, "residual_blocks_dev", calls, 5)
+    enqueue(enc, clip[1], TYPE_P, 1)
+    restore()
+    del enc
+    if len(calls) != 5:
+        fail(f"phase 2: the 1080p ultrafast P frame made {len(calls)} "
+             f"residual_blocks_dev calls, expected 5")
+    out = {"cases": sorted(cases), "calls": []}
+    for k, (a, kw) in enumerate(calls):
+        coeffs = a[0].contiguous()
+        chroma_dc = kw.get("chroma_dc", a[2] if len(a) > 2 else False)
+        nc = None if chroma_dc else a[1].contiguous()
+        label = (f"1080p ultrafast P frame 1, call {k}: "
+                 f"{'chroma DC' if chroma_dc else 'nC'} B = "
+                 f"{coeffs.shape[0]}, L = {coeffs.shape[1]}")
+        args = (coeffs, a[1], chroma_dc)
+        got = against_plain(label, args)
+        plain_ms = cuda_ms(torch, lambda: cavlc_dev.residual_blocks_plain(
+            *args), 1)
+        largs = (coeffs, nc, chroma_dc)
+        cuda_ms(torch, lambda: launch(*largs), 3)         # warm-up
+        runs = [cuda_ms(torch, lambda: launch(*largs), 20, prefill=True)
+                for _ in range(2)]
+        ms = sum(runs) / 2
+        bound_ms, bound_by, nbytes = cavlc_bound(largs, got)
+        out["calls"].append({"label": label, "B": coeffs.shape[0],
+                             "L": coeffs.shape[1], "chroma_dc": chroma_dc,
+                             "ms": ms, "runs": runs, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by,
+                             "bytes": nbytes, "bound_share": bound_ms / ms})
+        log(f"phase 2 cavlc_residual_kernel on {label} (CUDA events, 20 "
+            f"launches each): {runs[0]:.4f} / {runs[1]:.4f} ms; plain "
+            f"version {plain_ms:.2f} ms (1 run); bound {bound_ms * 1e3:.3f} "
+            f"us by {bound_by} ({nbytes} bytes), {bound_ms / ms:.4f} of it")
+    hits = [v for k, v in ptxas.items() if "cavlc_residual_kernel" in k]
+    if len(hits) != 1:
+        fail(f"build.log: {len(hits)} ptxas reports match "
+             f"cavlc_residual_kernel")
+    out["ptxas"] = hits[0]
+    out["worst"] = worst
+    log(f"phase 2 ptxas cavlc_residual_kernel: {json.dumps(hits[0])}")
+    return out
+
+
+def cavlc_only():
+    """--cavlc: phase 1's build of the kernels' library, then cavlc_phase
+    alone on the bench's first two 1080p frames; prints its result and the
+    card's name and power limit."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA "
+             "card")
+    sys.path.insert(0, ROOT)
+    from bench import synth_clip
+    from x264_tpu_torch.ops import _cuda
+    t0 = time.time()
+    lib = _cuda.build_library()
+    log(f"build: {time.time() - t0:.2f} s")
+    ptxas = ptxas_report(os.path.join(os.path.dirname(lib), "build.log"))
+    res = cavlc_phase(torch, torch.device("cuda"), synth_clip(2), ptxas)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(smi.stdout.strip())
+    print(json.dumps({"cavlc": res}), flush=True)
+
+
 # --------------------------------- CLI, farm and mesh, CUDA == CPU (phase 3)
 def cli_run(dev_name, work, name, src, extra):
     """The port's CLI on `src` with --device dev_name -> (output bytes,
@@ -1657,6 +1799,13 @@ def reset_launches():
     D.deblock_frame.launches = 0
     for fn in MO.LAUNCHES:
         fn.launches = 0
+    cavlc_launch().launches = 0
+
+
+def cavlc_launch():
+    """ops/cavlc.py cavlc_residual_launch (its .launches count)."""
+    from x264_tpu_torch.ops.cavlc import cavlc_residual_launch
+    return cavlc_residual_launch
 
 
 # the motion kernels: (name, wrapper in ops/motion.py, the scan replaced)
@@ -2384,8 +2533,9 @@ def main():
     MO._library()
     cap = C.grid_capacity(dev)
     log(f"phase 1 build: {time.time() - t0:.2f} s -> "
-        f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu, csrc/deblock.cu and "
-        f"csrc/motion.cu, one nvcc each, started together); frame kernel: "
+        f"{os.path.relpath(lib, ROOT)} (csrc/commit.cu, csrc/deblock.cu, "
+        f"csrc/motion.cu and csrc/cavlc.cu, one nvcc each, started "
+        f"together); frame kernel: "
         f"{cap} co-resident "
         f"blocks; deblock kernel: {D.grid_capacity(dev)} blocks of "
         f"{D.band_rows()} MB rows")
@@ -2442,6 +2592,7 @@ def main():
     wall8 = time.time() - t0
     launches_d, deblocks_d = launch_counts()
     motion = {"defaults": motion_counts()}
+    cavlc = {"defaults": cavlc_launch().launches}
     for r in restore:
         r()
     refdec8 = refdec_start(stream8, "default", background=True)
@@ -2612,6 +2763,8 @@ def main():
         log(f"phase 2 ptxas {k}: {json.dumps(report)}")
     del b_esa, b_subpel
     mark("2 the motion kernels")
+    cav = cavlc_phase(torch, dev, clip, ptxas)
+    mark("2 the CAVLC kernel")
 
     # ---- phase 4: the all-intra path, 2 x 1080p through Encoder.encode --
     p4 = intra_params(1920, 1080)
@@ -2625,6 +2778,7 @@ def main():
     wall = time.time() - t0
     launches, deblocks = launch_counts()
     motion["all-intra"] = motion_counts()
+    cavlc["all-intra"] = cavlc_launch().launches
     retries = sum((o.qp - qp_i) // 4 for o in outs)
     log(f"phase 4 all-intra path: {len(outs)} frames, {len(stream)} bytes, "
         f"QPs {[o.qp for o in outs]}, commit launches {launches} "
@@ -2667,6 +2821,7 @@ def main():
     wall5 = time.time() - t0
     launches_p, deblocks_p = launch_counts()
     motion["IPPP"] = motion_counts()
+    cavlc["IPPP"] = cavlc_launch().launches
     types = [o.i_type for o in outs5]
     nominal = {TYPE_IDR: qp_i, TYPE_P: qp_p}
     retries5 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs5)
@@ -2711,6 +2866,7 @@ def main():
     wall7 = time.time() - t0
     launches_c, deblocks_c = launch_counts()
     motion["CABAC"] = motion_counts()
+    cavlc["CABAC"] = cavlc_launch().launches
     types7 = [o.i_type for o in outs7]
     retries7 = sum((o.qp - nominal.get(o.i_type, qp_p)) // 4 for o in outs7)
     log(f"phase 7 CABAC main path: {len(outs7)} frames, types {types7}, "
@@ -2758,6 +2914,7 @@ def main():
         fast[label] = fast_path(torch, C, label, ultrafast_params(
             1920, 1080, pir=pir), clip[:n], dev, qp_i, timed)
         motion[label] = fast[label]["motion"]
+        cavlc[label] = fast[label]["cavlc"]
         later_cases.append(fast[label]["cpu_case"])
         prefixes[fast[label]["cpu_case"][0]] = fast[label]["stream"]
         mark(f"9 1080p {label} path, its stages")
@@ -2857,6 +3014,8 @@ def main():
             + profile_text(r["profile"]))
     log("phase 6 motion kernel launches per path (counts from 0 just "
         "before each path, read just after): " + json.dumps(motion))
+    log("phase 6 cavlc_residual_kernel launches per path (counts from 0 "
+        "just before each path, read just after): " + json.dumps(cavlc))
     log("phase 6 host seconds by phase: " + json.dumps(phase_seconds()))
     check_clean_imports()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2950,7 +3109,22 @@ def main():
                          for n, t in mot["lanes"].items()},
             "pairs_reused": mot["pairs_reused"]}
            if name == "me_subpel" else {})}
-        for name, _, replaces in MOTION_KERNELS]
+        for name, _, replaces in MOTION_KERNELS] + [{
+        "name": "cavlc_residual_kernel", "route": "cuda",
+        "source": "x264_tpu_torch/csrc/cavlc.cu",
+        "replaces": "x264_tpu/entropy/cavlc_jax.py:82 (residual_blocks_dev, "
+                    "XLA's fusion; no Pallas kernel)",
+        "launches": cavlc["IPPP"], "max_abs_err": cav["worst"],
+        "ms": cav["calls"][0]["ms"], "plain_ms": cav["calls"][0]["plain_ms"],
+        "bound_ms": cav["calls"][0]["bound_ms"],
+        "bound_by": cav["calls"][0]["bound_by"], "library_ms": None,
+        "bound_share": cav["calls"][0]["bound_share"],
+        **{k: cav["ptxas"][k] for k in ("registers", "smem_bytes",
+                                        "spill_bytes")},
+        "shape": cav["calls"][0]["label"],
+        "calls": [{k: c[k] for k in ("label", "ms", "plain_ms", "bound_ms",
+                                     "bound_share")} for c in cav["calls"]],
+        "launches_per_path": cavlc}]
     over = [k["name"] for k in kernels if k["bound_ms"] > k["ms"]]
     if over:
         fail(f"bound above the measured time (the count is no lower "
@@ -3005,6 +3179,7 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     wall = time.time() - t0
     launches, deblocks = launch_counts()
     motion = motion_counts()
+    cavlc = cavlc_launch().launches
     types = [o.i_type for o in outs]
     n = len(clip)
     retries = sum((o.qp - qp_i) // 4 if o.i_type == TYPE_IDR else
@@ -3054,7 +3229,7 @@ def fast_path(torch, C, label, params, clip, dev, qp_i, timed_calls):
     # frames 0-1 against the CPU port's: a case of phase 3
     key = f"phase 9 1080p {label} frames 0-1"
     return {"fps": n / wall, "wall": wall, "launches": launches,
-            "deblocks": deblocks, "motion": motion,
+            "deblocks": deblocks, "motion": motion, "cavlc": cavlc,
             "stages": stages, "profile": prof, "frames": n,
             "timed": list(timed_calls),
             "stream": stream,
@@ -3599,5 +3774,7 @@ if __name__ == "__main__":
         commit_ab_child(sys.argv[2])
     elif sys.argv[1:2] == ["--motion-ab-child"]:
         motion_ab_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--cavlc"]:
+        cavlc_only()
     else:
         main()

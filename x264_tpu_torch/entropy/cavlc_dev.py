@@ -19,6 +19,7 @@ import torch
 
 from ..device import const
 from ..ops._cuda import to_device
+from ..ops.cavlc import cavlc_residual_launch
 from ..ops.tables import ZIGZAG4_FRAME
 from ..utils import trace
 from . import vlc_tables as V
@@ -80,7 +81,19 @@ def _reverse_nonzeros_dev(coeffs):
 def residual_blocks_dev(coeffs, nc, chroma_dc: bool = False):
     """CAVLC for a batch of blocks: coeffs [B, L] int32 zig-zag, nc [B].
     Returns (codes [B, 36] int64, lens [B, 36] int32, total [B],
-    over [B] bool: a level escape not representable at its suffix length)."""
+    over [B] bool: a level escape not representable at its suffix length).
+    CUDA tensors go to the hand-written kernel (ops/cavlc.py, one launch),
+    CPU tensors to residual_blocks_plain."""
+    if coeffs.device.type == "cuda":
+        return cavlc_residual_launch(
+            coeffs.contiguous(), None if chroma_dc else nc.contiguous(),
+            chroma_dc)
+    return residual_blocks_plain(coeffs, nc, chroma_dc)
+
+
+def residual_blocks_plain(coeffs, nc, chroma_dc: bool = False):
+    """residual_blocks_dev on any device, as torch ops: the CPU path and
+    the specification of the CUDA kernel (csrc/cavlc.cu)."""
     B, L = coeffs.shape
     dev = coeffs.device
     code_cols = [None] * BLOCK_SLOTS

@@ -28,7 +28,8 @@ from ..utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "csrc", name)
-                for name in ("commit.cu", "deblock.cu", "motion.cu"))
+                for name in ("commit.cu", "deblock.cu", "motion.cu",
+                             "cavlc.cu"))
 BUILD = os.path.join(_PKG, "_build")
 _LIB = {}
 _LOCK = threading.Lock()
